@@ -1,8 +1,8 @@
-"""ntrace-tpu: a TPU-native ray tracing framework.
+"""ntrace-tpu: a ray tracing framework in JAX.
 
 A from-scratch rebuild of the capabilities of marekvinkler/NTrace (the
 Aila-Laine GPU ray traversal research framework plus Vinkler's kd-tree and
-GPU-builder extensions), designed TPU-first in JAX/XLA/Pallas.
+GPU-builder extensions) in JAX/XLA/Pallas, for NVIDIA GPUs.
 
 Reference provenance: the reference mount (/root/reference) was empty during
 the survey and build sessions; the blueprint is SURVEY.md and the binding
@@ -16,11 +16,12 @@ Layer map (mirrors SURVEY.md SS2):
                PNG out
   scenes    -- procedural stand-in scenes    (no OBJ assets exist offline)
   bvh       -- golden/median builders, SBVH, (ref: src/rt/bvh, rt/cuda/CudaBVH)
-               LBVH/HLBVH on TPU, flattener
+               device LBVH/HLBVH, flattener
   ray       -- RayBatch, raygen, pixel table (ref: src/rt/ray)
-  trace     -- traversal engines             (ref: src/rt/kernels/*.cu)
+  trace     -- traversal engines, GPU kernel (ref: src/rt/kernels/*.cu)
+  device    -- backend -> engine choice, compile cache
   render    -- frame orchestration, shading  (ref: src/rt/cuda/Renderer)
-  parallel  -- multi-chip ray sharding       (no reference equivalent)
+  parallel  -- multi-device ray sharding     (no reference equivalent)
   utils     -- timing, logging, caching      (ref: base/Timer)
 """
 

@@ -6,7 +6,7 @@ mount empty -- SURVEY.md SS0/SS4.4): Morton codes + radix sort, treelets
 from the TOP code bits, a SAH tree over the coarse clusters, fast
 linear emission inside each treelet, bottom-up refit.
 
-TPU-first composition here:
+Composition here:
   1. bvh/lbvh.py's radix-trie sweep runs in FOREST mode on device
      (cluster_shift = 30 - hlbvh_top_bits): rows whose top Morton bits
      differ root independent treelet subtrees; the sweep reports each

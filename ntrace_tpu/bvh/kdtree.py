@@ -221,22 +221,22 @@ def build_kdtree(scene: Scene, cfg: BuildConfig = BuildConfig()) -> FlatKDTree:
 
 
 def kd_to_flatbvh(kd: FlatKDTree):
-    """Re-express a kd-tree as a FlatBVH of its CELL boxes (TPU fast path).
+    """Re-express a kd-tree as a FlatBVH of its CELL boxes.
 
     A kd cell is an axis-aligned box, so the kd hierarchy is exactly a BVH
     whose child "bounds" are the two half-cells at each split plane. In that
-    form the Pallas packet engine (trace/packet_pallas.py) traverses it
+    form every BVH engine (the ww kernel under auto on a GPU) traverses it
     directly: the slab test against a cell box IS the kd interval clip
-    ([cell entry, cell exit] intersected with [tmin, hitT]), near-child
-    ordering via the pack-time order code reproduces front-to-back descent,
+    ([cell entry, cell exit] intersected with [tmin, hitT]), near-first
+    child ordering reproduces front-to-back descent,
     and the per-lane hitT clamp reproduces kd early exit (cells entirely
     beyond the current hit are culled). Leaf runs (woop rows + sentinels +
     duplicated straddling refs) are byte-identical between the two layouts,
     so they transfer verbatim.
 
     This replaces the reference's dedicated kd traversal kernels (expected
-    fermi_kdtree_while_while, SURVEY.md SS3.3) with a reuse of the fastest
-    TPU engine; the interval-stack engine (trace/kdtree_jax.py) remains as
+    fermi_kdtree_while_while, SURVEY.md SS3.3) with a reuse of the BVH
+    engines; the interval-stack engine (trace/kdtree_jax.py) remains as
     the semantics reference.
     """
     from ntrace_tpu.bvh.flatten import FlatBVH

@@ -1,12 +1,10 @@
 """Wide (8-ary) BVH: collapse the binary tree into 64-column fetch rows.
 
-Why: on this TPU, XLA row-gather costs ~7 ns per ROW regardless of row
-width (8/16/32/64 f32 columns measured identical -- PERF_NOTES.md), so
-traversal throughput is purely step-count-bound. An 8-wide node per fetch
-cuts inner steps ~2.6x vs binary, and packing 4 Woop triangles per leaf
-row cuts leaf steps 4x. This is the TPU translation of the reference's
-memory-layout tuning (its 64-byte node was sized for GPU cache lines; our
-256-byte row is sized for the gather-latency economics measured here).
+Why: a lockstep XLA engine pays per step, whatever the row width of its
+gather, so an 8-wide node per fetch cuts inner steps ~2.6x vs binary, and
+packing 4 Woop triangles per leaf row cuts leaf steps 4x. (The reference's
+64-byte node was sized for GPU cache lines; this 256-byte row is sized
+for step count; not yet measured on a GPU.)
 
 Wide unified-table layout, rows are float32[64]:
   node row (one per 8-ary node):

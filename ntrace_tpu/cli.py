@@ -90,7 +90,7 @@ def _make_renderer(args, mode: str):
         width=args.width, height=args.height, mode=mode,
         engine=spec.engine, kernel=args.kernel, samples=args.samples,
         ao_radius=args.ao_radius, sort_secondary=not args.no_sort,
-        max_batch_rays=spec.chunk, seed=args.seed,
+        seed=args.seed,
     )
     return scene, Renderer(scene, build_cfg, cfg, flat=flat), flat
 
@@ -217,6 +217,9 @@ def main(argv=None) -> int:
         import jax
 
         jax.config.update("jax_platforms", "cpu")
+    from ntrace_tpu.device import enable_compile_cache
+
+    enable_compile_cache()
     # --camera may be given multiple times for a benchmark matrix.
     if hasattr(args, "camera") and not args.camera:
         args.camera = ["default"]

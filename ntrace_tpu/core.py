@@ -226,7 +226,8 @@ class RenderConfig:
     width: int = 1024
     height: int = 768
     mode: str = "primary"  # primary | shadow | ao | diffuse | path
-    engine: str = "wavefront"  # wavefront | stack
+    engine: str = "auto"  # auto | stack2 | ww | stack | bvh8 | kdtree |
+    #                      cpu_golden; auto = ww on a GPU, stack2 elsewhere
     kernel: str = "auto"  # reference kernel-name compat; see trace/registry
     samples: int = 4  # AO/diffuse rays per hit (numSamples)
     ao_radius: float = 1.0
@@ -235,15 +236,12 @@ class RenderConfig:
     seed: int = 0
     light: tuple = (0.0, 0.0, 0.0)  # point light for shadow mode
     bounces: int = 2  # for mode="path"
-    packet_rows: int = 8  # packet engine: sublanes per packet (rays = rows*128)
     tex_filter: str = "trilinear"  # nearest | bilinear | trilinear (mipmapped)
-    seed_primary: str = "off"  # depth-prepass tmax seeding for primary rays
-    #                            (exact; render/renderer.py seeded_closest_
-    #                            trace). MEASURED 1.9x SLOWER on conference
-    #                            primary (results_r3_sweep.json: the strided
-    #                            prepass packets are incoherent and traversal
-    #                            is not tmax-bound) -- kept as an exact,
-    #                            tested option: "on" | "auto" (packet) | "off"
+    interpret: bool = False  # run the ww kernel in the Pallas interpreter
+    #                          (tests without a GPU); never chosen for you
+    seed_primary: str = "off"  # "on": depth-prepass tmax seeding for
+    #                            primary rays (exact; render/renderer.py
+    #                            seeded_closest_trace)
     compact_rays: str = "auto"  # between-pass live-ray compaction: after
     #                            the secondary-ray Morton sort puts dead
     #                            rays last, trace only the live prefix
@@ -251,62 +249,22 @@ class RenderConfig:
     #                            the reference's kepler_dynamic_fetch
     #                            capability at shape level).
     #                            "on" | "off" | "auto" (live < 3/4)
-    merge_sibs: bool = False  # packet_bdl: coalesce contiguous sibling
-    #                            leaf runs into one enqueue (OR'd per-row
-    #                            wants; superset drains stay exact). Also
-    #                            settable via tuned.json for auto engines.
-    qgroup: int = 1  # packet_bdl: ray rows per leaf-run queue (>1 divides
-    #                            the per-event scalar push chain by the
-    #                            group size; grouped rows drain the union
-    #                            of their wants -- superset, exact). Also
-    #                            settable via tuned.json for auto engines.
-    seed_secondary: str = "auto"  # sparse-SUBSET geometry tmax seeding for
-    #                            long incoherent closest-hit bounce rays
-    #                            (diffuse/path): trace a 1/seed_subset
-    #                            triangle subset first; its hits are real
-    #                            scene hits, so each t is a true upper
-    #                            bound, and the main pass traverses with
-    #                            [tmin, nextafter(t_sub)] -- hitT pruning
-    #                            from step one, exactly the same image
-    #                            (render/renderer.py subset_seeded_trace).
-    #                            "on" | "off" | "auto" (auto engages only
-    #                            when a device sweep wrote
-    #                            seed_secondary_on into tuned.json; the
-    #                            r5 fairy A/B measured seeding as a net
-    #                            loss on forest diffuse)
+    seed_secondary: str = "off"  # "on": sparse-SUBSET geometry tmax
+    #                            seeding for long closest-hit bounce rays
+    #                            (diffuse/path): a 1/seed_subset triangle
+    #                            subset's hits are true upper bounds on
+    #                            each ray's closest t (exact;
+    #                            render/renderer.py subset_seeded_trace)
     seed_subset: int = 16  # subset stride for seed_secondary
-    stage_secondary: str = "auto"  # EXACT multi-interval decomposition of
-    #                            long incoherent closest-hit bounces
-    #                            (diffuse/path): a short-tmax near pass
-    #                            (AO-class traversal economics) resolves
-    #                            rays whose closest hit lies within
-    #                            stage_radii x scene_scale of the origin
-    #                            -- a hit under tmax = tn + r IS the
-    #                            global closest, since traversal bounded
-    #                            by r is exhaustive within [tn, tn + r).
-    #                            Unresolved lanes are dead-marked (never
-    #                            sorted/compacted) so the following
-    #                            passes' packet unions shrink to the few
-    #                            live lanes; the last pass re-covers the
-    #                            FULL interval, so boundary rounding at
-    #                            the stage cut is never consulted
-    #                            (render/renderer.py
-    #                            staged_closest_trace). "on" | "off" |
-    #                            "auto" (auto engages only when a device
-    #                            sweep wrote stage_secondary_on into
-    #                            tuned.json -- same measurement gate as
-    #                            seed_secondary).
+    stage_secondary: str = "off"  # "on": EXACT multi-interval
+    #                            decomposition of long closest-hit bounces
+    #                            (diffuse/path): near passes of length
+    #                            stage_radii x scene_scale, then one pass
+    #                            over the full interval for the rest
+    #                            (render/renderer.py staged_closest_trace)
     stage_radii: tuple = (0.05,)  # near-interval lengths, as fractions of
     #                            scene scale, ascending; the full
     #                            interval is appended implicitly
-    compact_forest: str = "auto"  # chunk-membership ray compaction in the
-    #                            multi-chunk forest path (the reference's
-    #                            kepler_dynamic_fetch capability, SURVEY.md
-    #                            SS3.3): sort rays by which chunk bboxes
-    #                            their live segment can touch, so packets
-    #                            are chunk-homogeneous and whole packets
-    #                            die at entry for chunks they miss.
-    #                            "on" | "off" | "auto" (on when chunks > 1)
 
 
 def config_replace(cfg, **kw):

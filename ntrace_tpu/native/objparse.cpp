@@ -14,7 +14,7 @@
 // arbitrary polygon fan triangulation, negative (relative) indices,
 // usemtl/mtllib, comments, \r\n. Unknown keywords are skipped. Per-corner
 // vt indices are recorded (-1 where a corner has none) so textured OBJs
-// keep the native speed win (round-2 VERDICT: texture parity).
+// keep the native speed win (texture parity).
 //
 // Build: g++ -O3 -shared -fPIC objparse.cpp -o libobjparse.so (driven by
 // ntrace_tpu/native/build.py, cached by source hash).

@@ -8,7 +8,7 @@ numpy/jax fmin/fmax), child hit iff max(tmin_span, ray_tmin) <=
 min(tmax_span, ray_tmax).
 
 Namespace-generic: pass `ns` = numpy or jax.numpy so the golden tracer and
-the TPU engines share one formulation bit-for-bit.
+the device engines share one formulation bit-for-bit.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Moller-Trumbore is the reference's CPU-side / validation intersector; the GPU
 kernels use the Woop unit-triangle test (ops/woop.py). Both are exposed here
-with one namespace-generic formulation so golden and TPU paths agree.
+with one namespace-generic formulation so golden and device paths agree.
 
 Conventions shared by every intersector in this framework:
   - a hit counts iff tmin < t < tmax (strict, matching the reference kernel's

@@ -9,7 +9,7 @@ halfspace representation with lazily maintained vertices, plane clipping
 tests, and a camera-frustum constructor. Consumers: bvh/occlusion.py's
 visibility weighting (optional camera-frustum weights) and tests.
 
-All math is float64 on host (build-time only; never on the TPU hot path).
+All math is float64 on host (build-time only; never on the device hot path).
 """
 
 from __future__ import annotations

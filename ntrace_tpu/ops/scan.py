@@ -1,4 +1,4 @@
-"""Blocked prefix scans along the last axis (TPU-lane friendly).
+"""Blocked prefix scans along the last axis (128-lane blocks).
 
 The idea: XLA lowers `lax.cummax` on a length-n axis as ~log2(n)
 shifted-op passes over the full array (~20 passes at 1M); the blocked
@@ -6,14 +6,9 @@ form does 7 in-lane passes over 128-wide blocks, recursively scans the
 block carries (a 128x smaller problem), and applies the carry in one
 combine pass -- ~8 full-size passes total.
 
-MEASURED NEGATIVE RESULT (v5e, 2026-08-17): swapped into the (31, n)
-ANSV scans of bvh/lbvh.py this was ~25 ms SLOWER per 1M-tri build than
-plain lax.cummax/cummin (103.0 vs 77.3 ms total; scripts/
-lbvh_build_probe.py) -- the lane-masked shifted selects and reshape
-relayouts cost more than the pass-count reduction saves. XLA's native
-scan lowering is already near the memory floor on this part. Kept (with
-CPU-verified correctness) as a record and for possible reuse at shapes
-where the native scan is pathological.
+A recorded negative result: in the (31, n) ANSV scans of bvh/lbvh.py it
+was slower than plain lax.cummax/cummin, which bvh/lbvh.py uses. Kept (with CPU-verified correctness) for shapes where
+the native scan is pathological; not measured on a GPU.
 
 Reference context: replaces the running-max/min bookkeeping a CUDA builder
 would do with warp scans + atomics (expected rt/bvh/HLBVH/*, SURVEY.md

@@ -21,7 +21,7 @@ and the GPU test is:
 Deviation from the reference (documented per repo policy): we compute the
 inverse in float64 via the closed-form adjugate before casting the stored
 rows to float32 (the reference inverts in float32). Both the golden tracer
-and the TPU engines consume the SAME stored f32 rows, so parity between our
+and the device engines consume the SAME stored f32 rows, so parity between our
 engines is unaffected; the f64 inverse only improves conditioning on sliver
 triangles. Degenerate triangles (|n|^2 == 0) get a poison record that can
 never report a hit.

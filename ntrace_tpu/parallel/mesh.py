@@ -1,20 +1,17 @@
-"""Multi-chip ray-parallelism over a jax.sharding.Mesh.
+"""Multi-device ray-parallelism over a jax.sharding.Mesh.
 
 The reference is single-GPU (SURVEY.md SS3.4); its only parallelism is
-intra-chip. The TPU-native scaling axis added here is DATA PARALLELISM OVER
-RAYS: the BVH (nodes/woop/tri_index) is replicated on every chip, ray
-batches are sharded along a `rays` mesh axis, each chip traces its shard
-with the local engine, and per-frame reductions (hit counts, framebuffer
-gathers) ride ICI collectives. This composes with any engine because
-tracing is embarrassingly parallel across rays.
+within one card. The scaling axis added here is DATA PARALLELISM OVER
+RAYS: the BVH (nodes/woop/tri_index) is replicated on every device, ray
+batches are sharded along a 1-D `rays` mesh axis, each device traces its
+shard with the local engine, and per-frame reductions (hit counts) are
+collectives. This composes with any engine because tracing is
+embarrassingly parallel across rays.
 
-Design notes (How-to-Scale recipe): pick a mesh -> annotate shardings ->
-let XLA insert collectives. Rays are the batch dimension; the accel is the
-"weights". A replicated 480MB San Miguel accel fits every v5e's 16GB HBM,
-so no tensor-parallel accel sharding tier is needed at reference scale; the
-mesh keeps a single axis until scene sizes demand accel sharding.
+Rays are the batch dimension; the accel is the "weights". Every scene of
+the benchmark fits one card, so the accel is never sharded.
 
-The frame step SHARES the single-chip renderer's shading and raygen code
+The frame step SHARES the single-device renderer's shading and raygen code
 (render/renderer.py normal_color + shadow_mix, ray/raygen.py shadow +
 surface_frame): tests/test_parallel.py asserts the sharded frame equals the
 Renderer's shadow-mode output pixel-for-pixel on the virtual 8-device mesh.
@@ -22,15 +19,16 @@ Renderer's shadow-mode output pixel-for-pixel on the virtual 8-device mesh.
 
 from __future__ import annotations
 
-from functools import partial
+from functools import lru_cache, partial
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
+from ntrace_tpu.core import RenderConfig
 from ntrace_tpu.ray import raygen
-from ntrace_tpu.render.renderer import normal_color, shadow_mix
+from ntrace_tpu.render.renderer import normal_color, shadow_mix, unified_tracer
 from ntrace_tpu.trace.stack_jax import trace_stack
 
 
@@ -93,14 +91,17 @@ def frame_step(nodes, woop, tri_index, geom_normals,
                        light_pos, eps, axis)
 
 
-def trace_sharded_stack2(mesh: Mesh, ut, n_nodes, orig, dirn, tmin, tmax,
-                         any_hit: bool = False):
-    """The unified-table macro-step engine (stack2) under shard_map:
-    table replicated, rays sharded."""
-    from ntrace_tpu.trace.stack2_jax import trace_stack2
+def trace_sharded_unified(mesh: Mesh, ut, n_nodes, orig, dirn, tmin, tmax,
+                          any_hit: bool = False, engine: str = "stack2",
+                          interpret: bool = False):
+    """A unified-table engine (stack2, or the ww kernel) under shard_map:
+    table replicated, rays sharded; each device traces its own shard with
+    the tracer the Renderer builds for that engine
+    (render/renderer.py unified_tracer)."""
+    cfg = RenderConfig(engine=engine, interpret=interpret)
 
     def body(ut, o, d, tn, tx):
-        return trace_stack2(ut, n_nodes, o, d, tn, tx, any_hit=any_hit)
+        return unified_tracer(ut, n_nodes, engine, cfg)(o, d, tn, tx, any_hit)
 
     fn = jax.shard_map(
         body, mesh=mesh,
@@ -111,187 +112,44 @@ def trace_sharded_stack2(mesh: Mesh, ut, n_nodes, orig, dirn, tmin, tmax,
     return jax.jit(fn)(ut, orig, dirn, tmin, tmax)
 
 
-def _packet_kernel(kernel: str):
-    if kernel == "packet_bdl":
-        from ntrace_tpu.trace.packet_bdl import trace_packet_bdl as tr
-    elif kernel == "packet_dleaf":
-        from ntrace_tpu.trace.packet_dleaf import trace_packet_dleaf as tr
-    elif kernel == "packet_bfs":
-        from ntrace_tpu.trace.packet_bfs import trace_packet_bfs as tr
-    elif kernel == "packet":
-        from ntrace_tpu.trace.packet_pallas import trace_packet as tr
-    else:
-        # strict: a typo silently measured as the base kernel would
-        # poison A/B results
-        raise ValueError(f"unknown packet kernel {kernel!r}")
-    return tr
-
-
-def trace_sharded_packet(mesh: Mesh, nodes8, tris12, orig, dirn, tmin, tmax,
-                         any_hit: bool = False, rows: int = 8,
-                         interpret: bool = False, kernel: str = "packet",
-                         **kw):
-    """The Pallas packet-kernel family under shard_map: packed tables
-    replicated, rays sharded. On the virtual-CPU test mesh the kernel runs
-    interpreted; on a real TPU mesh it compiles per-chip Mosaic programs.
-    kernel selects the schedule (packet | packet_bfs | packet_dleaf |
-    packet_bdl; the batch kernels need nodes_per_row=1 tables)."""
-    tr = _packet_kernel(kernel)
-
-    def body(n8, t12, o, d, tn, tx):
-        return tr(n8, t12, o, d, tn, tx, any_hit=any_hit,
-                  rows=rows, interpret=interpret, **kw)
-
-    fn = jax.shard_map(
-        body, mesh=mesh,
-        in_specs=(P(), P(), P("rays"), P("rays"), P("rays"), P("rays")),
-        out_specs=(P("rays"), P("rays"), P("rays"), P("rays")),
-        check_vma=False,
-    )
-    return jax.jit(fn)(nodes8, tris12, orig, dirn, tmin, tmax)
-
-
-def make_mesh2(n_chunk: int, n_ray: int) -> Mesh:
-    """Two-axis mesh for scene sharding x ray data-parallelism."""
-    devs = jax.devices()
-    assert len(devs) >= n_chunk * n_ray
-    return Mesh(np.asarray(devs[: n_chunk * n_ray]).reshape(n_chunk, n_ray),
-                ("chunks", "rays"))
-
-
-def stack_forest_tables(forest: list[dict]):
-    """Pad per-chunk packed tables to a common row count and stack them
-    on a leading chunk axis (for sharding over a `chunks` mesh axis).
-
-    Padding rows are unreachable: traversal starts at each chunk's row 0
-    and only follows real child links, so zero rows are never read.
-    Returns (nodes (K, N, 128) f32, tris (K, T, 128) f32).
-    """
-    nmax = max(int(c["nodes"].shape[0]) for c in forest)
-    tmax_ = max(int(c["tris"].shape[0]) for c in forest)
-    pad = lambda a, rows: jnp.pad(jnp.asarray(a),
-                                  ((0, rows - a.shape[0]), (0, 0)))
-    nodes = jnp.stack([pad(c["nodes"], nmax) for c in forest])
-    tris = jnp.stack([pad(c["tris"], tmax_) for c in forest])
-    return nodes, tris
-
-
-def trace_sharded_forest(mesh: Mesh, nodes_st, tris_st, orig, dirn,
-                         tmin, tmax, any_hit: bool = False, rows: int = 8,
-                         interpret: bool = False, kernel: str = "packet",
-                         **kw):
-    """Scene sharding x ray data-parallelism over a 2-axis mesh.
-
-    The second multi-chip tier beyond replicated-accel ray DP (the
-    "model parallel" analogue): the Morton-chunked forest's packed
-    tables ride a leading chunk axis sharded over `chunks` (each chip
-    holds only its shard of the SCENE -- scenes larger than one chip's
-    HBM become tractable), while rays are sharded over `rays` and
-    replicated across the chunk axis. Each chip folds the closest hits
-    of its local chunks (tmax tightening between local passes, as in
-    the single-chip forest), then an all_gather over the chunk axis +
-    the kernels' exact (t, tri-id) tie rule reduce to results identical
-    to the single-device forest. The chunk tables must be packed with
-    tri_id_map (global ids), so no id remap is needed after the fold.
-
-    nodes_st/tris_st: stack_forest_tables output; the chunk count must
-    be divisible by the chunk-axis size.
-    """
-    tr = _packet_kernel(kernel)
-    n_chunk_devs = mesh.shape["chunks"]
-    K = nodes_st.shape[0]
-    assert K % n_chunk_devs == 0, (K, n_chunk_devs)
-    k_local = K // n_chunk_devs
-
-    def body(n8, t12, o, d, tn, tx):
-        best_id = jnp.full(tn.shape, -1, jnp.int32)
-        zero = jnp.zeros_like(tn)
-        best_t, best_u, best_v = tx, zero, zero
-        cur_tx = tx
-        for k in range(k_local):
-            tri_k, t_k, u_k, v_k = tr(
-                n8[k], t12[k], o, d, tn, cur_tx, any_hit=any_hit,
-                rows=rows, interpret=interpret, **kw)
-            hit_k = tri_k >= 0
-            if any_hit:
-                acc = hit_k & (best_id < 0)  # any witness is acceptable
-            else:
-                acc = hit_k & ((t_k < best_t)
-                               | ((t_k == best_t)
-                                  & ((tri_k < best_id) | (best_id < 0))))
-            best_id = jnp.where(acc, tri_k, best_id)
-            best_t = jnp.where(acc, t_k, best_t)
-            best_u = jnp.where(acc, u_k, best_u)
-            best_v = jnp.where(acc, v_k, best_v)
-            if any_hit:
-                # found rays are dead for the remaining local chunks
-                cur_tx = jnp.where(best_id >= 0, tn, cur_tx)
-            else:
-                cur_tx = best_t
-        # Cross-chip reduce over the scene shards: gather every chip's
-        # per-ray best and fold with the same exact tie rule.
-        g_id = jax.lax.all_gather(best_id, "chunks")
-        g_t = jax.lax.all_gather(best_t, "chunks")
-        g_u = jax.lax.all_gather(best_u, "chunks")
-        g_v = jax.lax.all_gather(best_v, "chunks")
-        best_id = g_id[0]
-        best_t, best_u, best_v = g_t[0], g_u[0], g_v[0]
-        for c in range(1, n_chunk_devs):
-            hit_c = g_id[c] >= 0
-            if any_hit:
-                acc = hit_c & (best_id < 0)
-            else:
-                acc = hit_c & ((g_t[c] < best_t)
-                               | ((g_t[c] == best_t)
-                                  & ((g_id[c] < best_id) | (best_id < 0))))
-            best_id = jnp.where(acc, g_id[c], best_id)
-            best_t = jnp.where(acc, g_t[c], best_t)
-            best_u = jnp.where(acc, g_u[c], best_u)
-            best_v = jnp.where(acc, g_v[c], best_v)
-        # Miss convention matches the kernels: t = original tmax.
-        best_t = jnp.where(best_id < 0, tx, best_t)
-        return best_id, best_t, best_u, best_v
-
-    fn = jax.shard_map(
-        body, mesh=mesh,
-        in_specs=(P("chunks"), P("chunks"),
-                  P("rays"), P("rays"), P("rays"), P("rays")),
-        out_specs=(P("rays"), P("rays"), P("rays"), P("rays")),
-        check_vma=False,
-    )
-    return jax.jit(fn)(nodes_st, tris_st, orig, dirn, tmin, tmax)
-
-
-def render_step_sharded_stack2(mesh: Mesh, ut, n_nodes, geom_normals,
-                               orig, dirn, tmin, tmax, light_pos, eps=1e-3):
-    """Full frame step (primary + shadow secondary + shading + stats psum)
-    on the stack2 engine, rays sharded over the mesh."""
-    from ntrace_tpu.trace.stack2_jax import trace_stack2
+@lru_cache(maxsize=None)
+def _render_step(mesh: Mesh, n_nodes: int, engine: str, interpret: bool):
+    """The jitted sharded frame step, built once per (mesh, table, engine)
+    so repeated frames reuse one compiled program."""
+    cfg = RenderConfig(engine=engine, interpret=interpret)
 
     def step(ut, gn, o, d, tn, tx, light, eps_):
-        def tracer(o2, d2, tn2, tx2, ah):
-            return trace_stack2(ut, n_nodes, o2, d2, tn2, tx2, any_hit=ah)
-
+        tracer = unified_tracer(ut, n_nodes, engine, cfg)
         return _frame_body(tracer, gn, o, d, tn, tx, light, eps_,
                            axis="rays")
 
-    fn = jax.shard_map(
+    return jax.jit(jax.shard_map(
         step, mesh=mesh,
         in_specs=(P(), P(), P("rays"), P("rays"), P("rays"), P("rays"),
                   P(), P()),
         out_specs=(P("rays"), P()),
         check_vma=False,
-    )
-    return jax.jit(fn)(ut, geom_normals, orig, dirn, tmin, tmax,
-                       light_pos, jnp.float32(eps))
+    ))
+
+
+def render_step_sharded_unified(mesh: Mesh, ut, n_nodes, geom_normals,
+                                orig, dirn, tmin, tmax, light_pos, eps=1e-3,
+                                engine: str = "stack2",
+                                interpret: bool = False):
+    """Full frame step (primary + shadow secondary + shading + stats psum),
+    rays sharded over the mesh, on a unified-table engine: stack2 by
+    default, or the ww kernel."""
+    return _render_step(mesh, n_nodes, engine, interpret)(
+        ut, geom_normals, orig, dirn, tmin, tmax, light_pos,
+        jnp.float32(eps))
 
 
 def render_step_sharded(mesh: Mesh, nodes, woop, tri_index, geom_normals,
                         orig, dirn, tmin, tmax, light_pos, eps=1e-3):
     """One full sharded frame step: primary trace -> shadow any-hit ->
-    shading -> global stats psum. This is the multi-chip "step" the driver
-    dry-runs; it exercises replicated-accel + ray-sharded compute and an
-    ICI collective (psum of hit counts).
+    shading -> global stats psum, on the v1 stack engine. It exercises
+    replicated-accel + ray-sharded compute and one collective (psum of
+    hit counts).
     Returns (color (R,3) sharded by rays, global_hits scalar replicated).
     """
     fn = jax.shard_map(
@@ -305,37 +163,3 @@ def render_step_sharded(mesh: Mesh, nodes, woop, tri_index, geom_normals,
     return jax.jit(fn)(nodes, woop, tri_index, geom_normals,
                        orig, dirn, tmin, tmax, light_pos,
                        jnp.float32(eps))
-
-
-def trace_sharded_binraster(mesh: Mesh, rows, row0, row1, dirs3, scalars,
-                            g_r1, *, n_bins: int, unroll: int = 4,
-                            ez_chunk: int = 8, interpret: bool = False):
-    """The screen-space bin-raster primary engine under shard_map.
-
-    Row tables (the prepped scene) are replicated; SCREEN BINS -- each a
-    contiguous 1024-ray Morton slot block -- are sharded over the mesh's
-    `rays` axis, so each chip walks its own bins and outputs its slice of
-    the frame with no collective at all (primary-ray DP is embarrassingly
-    parallel over pixels). dirs3: (3, n_bins*8, 128) component-stacked ray
-    dirs (trace/binraster.py layout, split so the bin axis is shardable).
-    """
-    from ntrace_tpu.trace.binraster import trace_binraster_rows
-
-    nd = mesh.devices.size
-    assert n_bins % nd == 0, "bins must divide the mesh"
-    lb = n_bins // nd
-
-    def body(rw, r0, r1, d3, sc, g1):
-        d = d3.reshape(3 * lb * 8, 128)
-        return trace_binraster_rows(
-            rw, r0, r1, d, sc, g1, n_bins=lb, unroll=unroll,
-            ez_chunk=ez_chunk, interpret=interpret)
-
-    fn = jax.shard_map(
-        body, mesh=mesh,
-        in_specs=(P(), P("rays"), P("rays"), P(None, "rays", None),
-                  P(), P()),
-        out_specs=(P("rays"),) * 4,
-        check_vma=False,
-    )
-    return jax.jit(fn)(rows, row0, row1, dirs3, scalars, g_r1)

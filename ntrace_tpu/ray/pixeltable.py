@@ -2,8 +2,8 @@
 
 The reference precomputes a Z-curve ordering of pixel indices so that
 consecutive primary rays are screen-coherent (warps trace nearby pixels).
-The same ordering helps the TPU engines: coherent rays visit the same nodes,
-so lockstep batches finish together and wavefront queues stay dense.
+The same ordering helps every engine here: coherent rays visit the same
+nodes, so warps and lockstep batches finish together.
 """
 
 from __future__ import annotations

@@ -55,12 +55,11 @@ def morton_sort_key(ns, orig, dirn, scene_lo, scene_hi,
     """Coherence sort key for ray reordering.
 
     direction_major=True: 6-bit direction code (2 bits/axis, interleaved)
-    before the origin Morton code. The shared-stack packet engine's
-    per-step cost is the union of nodes a packet's rays want; for LONG
-    incoherent rays (diffuse/path bounces) the dominant coherence axis is
-    DIRECTION -- measured 1.9x on fairy diffuse bounces vs origin-major
-    (scripts/sortkey_sweep.py, v5e); finer direction codes (9/12 bits)
-    lose origin coherence and regress.
+    before the origin Morton code. For LONG incoherent rays (diffuse/path
+    bounces) the dominant coherence axis is DIRECTION: rays traced side
+    by side then want the same nodes. (Chosen for an earlier packet
+    engine, where finer direction codes (9/12 bits) lost origin
+    coherence; not yet measured on a GPU.)
 
     direction_major=False: origin-major with the direction octant in the
     low bits -- the right key for SHORT rays (AO at ao_radius tmax),
@@ -92,8 +91,8 @@ def morton_sort_rays(batch: RayBatch, scene_lo, scene_hi,
 
     direction_major: see morton_sort_key -- True for long bounce rays,
     False for short (AO-class) rays. Dead rays (tmax <= tmin: padding,
-    already-terminated) sort to the END so they fill whole packets that
-    exit in one step instead of wasting lanes inside live packets.
+    already-terminated) sort to the END so they fill whole blocks that
+    exit at once instead of wasting lanes inside live blocks.
     """
     ns = jnp if isinstance(batch.orig, jax.Array) else np
     key = morton_sort_key(ns, batch.orig, batch.dirn, scene_lo, scene_hi,

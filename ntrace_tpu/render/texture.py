@@ -2,14 +2,13 @@
 
 Capability parity (~ framework/3d/Texture.* + TextureAtlas.*): the
 reference packs textures into a mipmapped atlas for GPU shading. The
-TPU-native equivalent is a (n_materials, S, S, 3) float32 stack (every
-image resized to one resolution -- uniform shapes are what the hardware
-wants), sampled with wrap addressing at three quality tiers:
+equivalent here is a (n_materials, S, S, 3) float32 stack (every image
+resized to one resolution -- uniform shapes suit XLA), sampled with wrap addressing at three quality tiers:
 
   nearest   : 1 gather per ray (the round-1/2 sampler)
   bilinear  : 4 taps + lerp
   trilinear : mip pyramid flattened into one (M, P, 3) buffer (levels at
-              static offsets -- TPU-friendly: one array, per-ray level
+              static offsets -- one array, per-ray level
               arithmetic instead of ragged shapes), 8 taps across the two
               straddling levels. LOD comes from a ray-cone footprint:
               per-triangle texel density (uv area / world area) x hit

@@ -10,7 +10,7 @@ hitT on accepted hits, any-hit early out).
 
 Instead of one CUDA thread per ray, every ray in the batch executes ONE step
 of the state machine per iteration in lockstep (vector ops over (R,)-shaped
-state) -- the TPU-native moral equivalent of a warp, and exactly replayable
+state) -- the XLA moral equivalent of a warp, and exactly replayable
 in numpy for the golden tracer. All arithmetic is delegated to ops/ so both
 drivers share one formulation.
 """

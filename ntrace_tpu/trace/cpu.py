@@ -1,7 +1,7 @@
 """CPU golden tracer: numpy lockstep driver of the while-while step.
 
 This is BASELINE.json config #1's "CPU traversal golden reference". Every
-TPU engine must match its hit ids / t / u / v (SURVEY.md SS5). It shares the
+engine must match its hit ids / t / u / v (SURVEY.md SS5). It shares the
 step function (trace/common.py) and all intersection math (ops/) with the
 jax drivers, so any divergence is an engine bug, not a formulation drift;
 the step machinery itself is validated independently against brute force
@@ -49,28 +49,13 @@ def golden_mismatches(tri_dev, t_dev, tri_gold, t_gold,
     A differing hit id counts as a mismatch only when the hit distances
     also differ by more than `ulps` float32 ulps. Rays crossing a shared
     mesh edge hit two triangles at the same point; engines that visit
-    them in a different order than the CPU's BVH walk legitimately
-    return the other id with t equal to within 1-2 ulp (round-4 diag of
-    the dense engine's 8/786432 conference residue: every one a
-    shared-edge tie, u or v exactly on the edge, rel t gap <= 3e-7 --
-    scripts/r4_dense_golden_diag.py). Misses (-1 / poison -2) never tie.
+    them in a different order than the CPU's BVH walk, or that round
+    a*b+c once (FMA) where numpy rounds twice, legitimately return the
+    other id with t equal to within 1-2 ulp. Misses (-1 / poison -2)
+    never tie.
 
     The ulp distance is the difference of the int32 bit patterns, exact
     for same-sign finite floats (hit distances are positive).
-
-    Why raw-0 id equality is NOT achievable against this golden for the
-    dense screen-space engine (r4 VERDICT hygiene item, investigated
-    r5): the golden's leaf test runs on WOOP-transformed triangles
-    (flat.woop, the BVH engines' arithmetic) while the dense engine
-    runs raw Moller-Trumbore on vertices -- two exact-but-different f32
-    formulations whose t values differ in the last ulps. At a shared
-    mesh edge the two triangles' t values straddle within those ulps,
-    so which one wins lex-(t, id) legitimately differs BETWEEN
-    FORMULATIONS, not between visit orders; no accumulate-order change
-    on either side can reconcile them. Raw-exact dense checks instead
-    gate against bvh/golden.py brute_force_mt (identical MT op order;
-    tests/test_binraster_dense.py asserts bit equality), and this
-    tie-aware compare remains the cross-formulation frame gate.
     """
     tri_dev = np.asarray(tri_dev)
     tri_gold = np.asarray(tri_gold)

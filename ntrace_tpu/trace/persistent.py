@@ -1,10 +1,8 @@
 """Persistent-dispatch tracer: the whole frame in ONE device launch.
 
 The reference's persistent-threads kernels exist to avoid per-batch launch
-overhead; the TPU analogue is dispatch-count, not warp scheduling: each
-jit dispatch through the (remote) runtime costs ~20-25 ms of latency
-(PERF_NOTES.md), so launching a frame as 12-24 ray chunks wastes ~0.5 s.
-This driver reshapes the frame into (n_chunks, chunk) and runs the
+overhead; the analogue for a lockstep XLA engine is dispatch count, not
+warp scheduling. This driver reshapes the frame into (n_chunks, chunk) and runs the
 per-chunk while-while loop under `lax.map` INSIDE one jit call -- one
 dispatch per frame, chunks still small enough that lockstep tail waste
 stays bounded (Morton pixel order keeps chunks coherent).

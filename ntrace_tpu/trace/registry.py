@@ -1,30 +1,20 @@
-"""Kernel registry: reference kernel names -> engine configurations.
+"""Kernel registry: reference kernel names -> engines.
 
 The reference selects a traversal kernel by compilation-unit name
 (~ rt/cuda/CudaTracer.cpp loading rt/kernels/<name>.cu and reading its
-KernelConfig). The rebuild keeps those names as aliases so reference
-benchmark scripts translate directly; each maps onto a TPU engine variant.
+KernelConfig). The rebuild keeps those names so reference benchmark scripts
+translate directly. Each maps onto an engine of this repository:
 
-CUDA-variant -> TPU-engine correspondence (SURVEY.md SS3.3). These are now
-DISTINCT kernels with genuinely different schedules, not aliases:
-  while-while             ~ packet_ww (trace/packet_ww.py): phase-separated
-                            node loop + leaf loop, branch-free, leaf queue
-  speculative while-while ~ packet_ifif (trace/packet_ifif.py): every step
-                            executes BOTH phases, results select-masked --
-                            the literal if-if speculation, branch-free
-  packet                  ~ packet (trace/packet_pallas.py): shared-stack
-                            cond-structured traversal, inline leaf phases
-                            (fastest on conference primaries)
-  packet + frustum        ~ packet_wide (trace/packet_wide.py): 8-ary
-                            nodes, conservative packet-frustum culling
-  dynamic ray fetch       ~ packet engine fed by DIRECTION-major sorted
-                            ray queues with dead rays packed last
-                            (ray/raybatch.py morton_sort_key): the warp
-                            refill's goal -- full lanes of similar work on
-                            incoherent rays -- is met by reordering before
-                            dispatch instead of fetching mid-flight
-  persistent threads      ~ the one-dispatch chunked XLA engines (stack2/
-                            persistent.py)
+  ww     (trace/ww_kernel.py)   per-ray while-while GPU kernel: the
+                                reference's node loop + leaf loop, one
+                                lane per ray, private 64-entry stack
+  stack2 (trace/stack2_jax.py,  XLA lockstep step machine over chunks of
+          trace/persistent.py)  rays in one dispatch; runs on any backend
+
+The Fermi/Kepler variants' extra mechanisms -- speculative leaf
+postponing, persistent warps with a global ray counter, dynamic refill of
+dead lanes -- are not built yet; their names run the plain while-while
+kernel.
 """
 
 from __future__ import annotations
@@ -34,61 +24,38 @@ from dataclasses import dataclass
 
 @dataclass(frozen=True)
 class KernelSpec:
-    engine: str          # stack | wavefront | cpu_golden
-    chunk: int           # in-flight rays per launch
+    engine: str
     note: str = ""
 
 
+_WW = "per-ray while-while kernel (trace/ww_kernel.py)"
+
 _REGISTRY = {
-    # Reference kernel names (aliases for script compatibility):
-    "tesla_persistent_while_while": KernelSpec(
-        "packet_ww", 1 << 22, "phase-separated while-while Pallas kernel"),
-    "tesla_persistent_packet": KernelSpec(
-        "packet_wide", 1 << 22, "8-wide frustum packet Pallas kernel"),
+    # Reference kernel names:
+    "tesla_persistent_while_while": KernelSpec("ww", _WW),
     "tesla_persistent_speculative_while_while": KernelSpec(
-        "packet_ifif", 1 << 22, "branch-free speculative if-if kernel"),
+        "ww", _WW + "; leaf postponing not built"),
+    "tesla_persistent_packet": KernelSpec("ww", _WW),
     "fermi_speculative_while_while": KernelSpec(
-        "packet", 1 << 22, "fastest engine on TPU"),
+        "ww", _WW + "; leaf postponing not built"),
     "kepler_dynamic_fetch": KernelSpec(
-        "packet", 1 << 22,
-        "incoherent-ray path: direction-major sorted queues + dead-ray "
-        "packing (renderer sort_secondary) stand in for in-warp refill"),
+        "ww", _WW + "; dead-lane refill not built, secondary rays are "
+        "Morton-sorted with dead rays last instead (renderer "
+        "sort_secondary)"),
     "fermi_kdtree_while_while": KernelSpec(
-        "auto", 1 << 22,
-        "pair with --builder=kdtree: kd cells re-expressed as a cell-box "
-        "BVH traverse via the packet engine on TPU (bvh/kdtree.py "
-        "kd_to_flatbvh); 'kdtree' names the interval-stack reference engine"),
+        "auto", "pair with --builder=kdtree: kd cells re-expressed as a "
+        "cell-box BVH (bvh/kdtree.py kd_to_flatbvh); 'kdtree' names the "
+        "interval-stack reference engine"),
     # Native names:
-    "stack": KernelSpec("stack", 1 << 16, "v1 two-table engine"),
-    "stack2": KernelSpec("stack2", 1 << 16, "unified-table macro-step engine"),
-    "bvh8": KernelSpec("bvh8", 1 << 13, "8-wide one-dispatch engine"),
-    "kdtree": KernelSpec("kdtree", 1 << 13, "interval-stack kd engine"),
-    "packet": KernelSpec("packet", 1 << 22,
-                         "Pallas VMEM shared-stack packet kernel"),
-    "packet_ifif": KernelSpec("packet_ifif", 1 << 22,
-                              "branch-free speculative if-if kernel"),
-    "packet_ww": KernelSpec("packet_ww", 1 << 22,
-                            "phase-separated while-while kernel"),
-    "packet_pipe": KernelSpec("packet_pipe", 1 << 22,
-                              "software-pipelined while-while kernel"),
-    "packet_wide": KernelSpec("packet_wide", 1 << 22,
-                              "8-wide frustum-interval packet kernel"),
-    "packet_bfs": KernelSpec("packet_bfs", 1 << 22,
-                             "breadth-first node-batch packet kernel"),
-    "packet_dleaf": KernelSpec("packet_dleaf", 1 << 22,
-                               "deferred-leaf packet kernel (per-row "
-                               "leaf pairing via SMEM run queues)"),
-    "packet_bdl": KernelSpec("packet_bdl", 1 << 22,
-                             "batched-node + deferred-leaf packet kernel "
-                             "(8 nodes/step, per-row leaf run queues)"),
-    # "auto"/"wavefront" resolve inside Renderer (ONE resolution path shared
-    # by the CLI, bench.py, and the matrix script): packet on TPU backends,
-    # stack2 elsewhere. The wavefront name = the packet engine fed by the
-    # renderer's Morton-sorted ray queues (sort_secondary).
-    "wavefront": KernelSpec("wavefront", 1 << 22,
-                            "packet engine + sorted ray queues (TPU)"),
-    "cpu_golden": KernelSpec("cpu_golden", 1 << 30),
-    "auto": KernelSpec("auto", 1 << 22),
+    "ww": KernelSpec("ww", _WW),
+    "stack": KernelSpec("stack", "v1 two-table lockstep engine"),
+    "stack2": KernelSpec("stack2", "unified-table lockstep engine"),
+    "bvh8": KernelSpec("bvh8", "8-wide one-dispatch engine"),
+    "kdtree": KernelSpec("kdtree", "interval-stack kd engine"),
+    "cpu_golden": KernelSpec("cpu_golden", "host reference tracer"),
+    # Resolved inside Renderer (device.default_engine): ww on a GPU,
+    # stack2 elsewhere.
+    "auto": KernelSpec("auto"),
 }
 
 

@@ -1,11 +1,10 @@
 """Engine v2: unified-table lockstep traversal with macro-stepping.
 
-Two measured-cost optimizations over trace/stack_jax.py (PERF_NOTES.md):
-  1. unified node+woop table -> ONE ~4ns gather per ray-step (1.75x less
+Two optimizations over trace/stack_jax.py (not yet tuned for a GPU):
+  1. unified node+woop table -> ONE gather per ray-step (1.75x less
      gathered traffic, half the gather launches);
-  2. UNROLL steps per while_loop iteration (gathers inside a while_loop
-     run ~3x slower than an unrolled dependency chain; macro-stepping
-     amortizes loop overhead and lets XLA software-pipeline).
+  2. UNROLL steps per while_loop iteration (macro-stepping amortizes loop
+     overhead and lets XLA software-pipeline).
 Results are bit-identical in decision sequence to the v1 engine (rays
 that finish inside a macro-step idle behind their SENTINEL masks).
 """

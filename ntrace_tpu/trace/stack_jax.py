@@ -1,17 +1,16 @@
 """JAX batch-lockstep while-while traversal engine (correctness engine).
 
-SURVEY.md SS8 M2: the "minimum end-to-end slice on TPU". All rays in the
+SURVEY.md SS8 M2: the minimum end-to-end slice. All rays in the
 batch advance one while-while step per iteration of a single
 `lax.while_loop`; per-ray stacks live in a (R, 64) int32 array. The step
 function is the SAME code the numpy golden driver executes
 (trace/common.py), so results match the CPU golden tracer by construction
 up to compiler fma/reassociation differences.
 
-This engine is the correctness oracle for the wavefront engine (SS8 M3) and
-the fallback path. TPU cost profile: each step is a (R,16)+(R,12) HBM gather
-plus ~60 VPU ops; the loop runs until the LAST ray finishes, so incoherent
-batches pay a long tail -- exactly the divergence the wavefront engine's
-compaction removes.
+This engine is a correctness oracle for the faster engines. Cost profile:
+each step is a (R,16)+(R,12) gather plus ~60 elementwise ops; the loop
+runs until the LAST ray finishes, so incoherent batches pay a long tail --
+the divergence a per-ray kernel (trace/ww_kernel.py) does not have.
 """
 
 from __future__ import annotations

@@ -2,10 +2,10 @@
 
 The baseline step (trace/common.py) fetches a 64B node record AND a 48B
 woop record every step for every ray, though each ray needs only one of
-them (its phase). With XLA TPU gathers costing ~7ns/row regardless of
-width (PERF_NOTES.md), fusing both tables into one 16-column table and
+them (its phase). Fusing both tables into one 16-column table and
 fetching exactly one row per ray-step cuts gathered traffic ~1.75x and
-halves gather launches.
+halves gather launches. The ww kernel (trace/ww_kernel.py) reads the same
+table.
 
 Unified table layout (rows are float32[16]):
   row i < n_nodes        : flattened node record (flatten.py layout)

@@ -1,7 +1,5 @@
 """Occlusion-aware builder + video export."""
 
-import os
-
 import numpy as np
 import pytest
 
@@ -94,7 +92,7 @@ class TestCompactRays:
     """Between-pass live-ray compaction (_compact_trace) is pixel-exact.
 
     The reference's kepler_dynamic_fetch capability (SURVEY.md SS3.3):
-    terminated rays must not occupy traversal lanes. The TPU analogue
+    terminated rays must not occupy traversal lanes. The analogue here
     truncates the Morton-sorted batch (dead rays at the end) to a
     padded live prefix; these tests pin that the truncation + result
     re-padding is invisible in the image for every secondary-ray mode.
@@ -138,96 +136,32 @@ class TestCompactRays:
         assert (np.asarray(tri[8192:]) == -1).all()
 
 
-class TestTunedDispatch:
-    """Auto-dispatch tuning plumbing (render/renderer.py _load_tuned +
-    scripts/pick_tuned.py): device-measured winner drives `auto`."""
+@pytest.mark.parametrize("mode", ["shadow", "ao", "diffuse"])
+def test_render_secondary_hits_are_trace_secondary(mode):
+    """render() traces its secondary pass through Renderer.trace_secondary
+    and returns those hits (traced order), so a check of the returned ids
+    checks what render traced."""
+    import jax
+    import jax.numpy as jnp
 
-    def test_load_tuned_env_and_disable(self, tmp_path, monkeypatch):
-        from ntrace_tpu.render.renderer import _load_tuned
+    from ntrace_tpu.ray import pixel_table, raygen
+    from ntrace_tpu.render.renderer import Renderer
 
-        p = tmp_path / "tuned.json"
-        p.write_text('{"engine": "packet_bdl", "packet_rows": 32}')
-        monkeypatch.setenv("NTRACE_TUNED", str(p))
-        assert _load_tuned() == {"engine": "packet_bdl", "packet_rows": 32}
-        monkeypatch.setenv("NTRACE_TUNED", "0")
-        assert _load_tuned() == {}
-        monkeypatch.setenv("NTRACE_TUNED", str(tmp_path / "absent.json"))
-        assert _load_tuned() == {}
-
-    def test_pick_tuned_selects_fastest(self, tmp_path):
-        import json
-        import shutil
-        import subprocess
-        import sys
-
-        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-        work = tmp_path / "repo"
-        (work / "scripts").mkdir(parents=True)
-        shutil.copy(os.path.join(root, "scripts", "pick_tuned.py"),
-                    work / "scripts" / "pick_tuned.py")
-        results = {
-            "reduce_sum_ns_per_iter": 8.1,                      # ignored
-            "packet16_base": {"mrays": 40.0},
-            "packet16_bothbc": {"mrays": 44.0},
-            "packet_bfs8": {"mrays": 39.0},
-            "packet_dleaf32_dm32": {"mrays": 61.0},
-            "packet_bdl32_dm32": {"mrays": 95.5},
-            "lbvh_packed_ml8": {"wall1_ms": 60.0},              # ignored
-        }
-        (work / "results_r3b_sweep.json").write_text(json.dumps(results))
-        out = subprocess.run(
-            [sys.executable, str(work / "scripts" / "pick_tuned.py")],
-            capture_output=True, text=True, check=True)
-        tuned = json.loads((work / "tuned.json").read_text())
-        assert tuned["engine"] == "packet_bdl"
-        assert tuned["packet_rows"] == 32
-        assert tuned["source_key"] == "packet_bdl32_dm32"
-        assert tuned["drain_min"] == 32
-        # knob variants map to the base engine WITH their flags
-        results["packet16_bothbc"]["mrays"] = 200.0
-        (work / "results_r3b_sweep.json").write_text(json.dumps(results))
-        subprocess.run(
-            [sys.executable, str(work / "scripts" / "pick_tuned.py")],
-            capture_output=True, text=True, check=True)
-        tuned = json.loads((work / "tuned.json").read_text())
-        assert tuned == {"engine": "packet", "packet_rows": 16,
-                         "mrays": 200.0, "source_key": "packet16_bothbc",
-                         "leafbc": True, "slabbc": True}
-        # grouped-queue variants carry qgroup (+ merge_sibs from _ms)
-        results["packet_bdl16_qg4_ms"] = {"mrays": 250.0}
-        (work / "results_r3b_sweep.json").write_text(json.dumps(results))
-        subprocess.run(
-            [sys.executable, str(work / "scripts" / "pick_tuned.py")],
-            capture_output=True, text=True, check=True)
-        tuned = json.loads((work / "tuned.json").read_text())
-        assert tuned["engine"] == "packet_bdl"
-        assert tuned["qgroup"] == 4
-        assert tuned["merge_sibs"] is True
-        assert tuned["packet_rows"] == 16
-
-    def test_tuned_engine_on_direct_path(self, tmp_path, monkeypatch):
-        """auto + builder=lbvh on the packed-direct path must honour the
-        tuned batch-family engine (direct tables are nodes_per_row=1) and
-        stay pixel-identical to the base packet kernel."""
-        from ntrace_tpu.core import BuildConfig, RenderConfig
-        from ntrace_tpu.render.renderer import Renderer
-        from ntrace_tpu.scenes import default_camera, get_scene
-
-        p = tmp_path / "tuned.json"
-        p.write_text('{"engine": "packet_bdl", "packet_rows": 16}')
-        monkeypatch.setenv("NTRACE_DIRECT", "1")
-        scene = get_scene("conference@4000")
-        cam = default_camera("conference")
-        bc = BuildConfig(builder="lbvh", max_leaf_size=32)
-        cfg = RenderConfig(width=64, height=48, mode="primary",
-                           engine="auto")
-
-        monkeypatch.setenv("NTRACE_TUNED", str(p))
-        r = Renderer(scene, bc, cfg)
-        assert r._direct and r.engine == "packet_bdl" and r.tuned_rows == 16
-        img = np.asarray(r.render(cam).image)
-
-        monkeypatch.setenv("NTRACE_TUNED", "0")
-        r2 = Renderer(scene, bc, cfg)
-        assert r2._direct and r2.engine == "packet"
-        np.testing.assert_array_equal(img, np.asarray(r2.render(cam).image))
+    scene = get_scene("conference", n_tris=3000)
+    cam = default_camera("conference")
+    W, H = 32, 24
+    r = Renderer(scene, BuildConfig(builder="binned_sah"),
+                 RenderConfig(width=W, height=H, engine="stack2", samples=2))
+    res = r.render(cam, mode=mode)
+    batch = raygen.primary(raygen.camera_arrays(cam, W, H), W, H,
+                           jnp.asarray(pixel_table(W, H)[0]))
+    slot = np.asarray(batch.slot_to_id)
+    sec, any_hit = r.gen_secondary(
+        cam, mode, batch, jnp.asarray(res.hit_tri[slot]),
+        jnp.asarray(res.hit_t[slot]), key=jax.random.PRNGKey(r.cfg.seed))
+    assert any_hit == (mode != "diffuse")
+    stri = r.trace_secondary(sec, mode)[0]
+    assert res.secondary_tri.shape == (sec.num_rays,)
+    np.testing.assert_array_equal(np.asarray(stri),
+                                  np.asarray(res.secondary_tri))
+    assert (np.asarray(stri) >= 0).any()

@@ -61,9 +61,10 @@ def test_unknown_kernel_errors(tmp_path):
 
 
 def test_auto_engine_unified(monkeypatch):
-    """'auto'/'wavefront' resolve through ONE path: packet on TPU backends,
-    stack2 off-TPU; kd accels always route to the kd engine (round-2 VERDICT
-    weak #2 / ADVICE: the CLI and bench.py must select the same engine)."""
+    """'auto' resolves through ONE path (device.default_engine): the ww
+    kernel on a GPU backend, stack2 elsewhere; kd accels trace as their
+    cell-box FlatBVH unless the kd engine is named (the CLI and bench.py
+    must select the same engine)."""
     import jax
 
     from ntrace_tpu.core import BuildConfig, RenderConfig
@@ -71,29 +72,27 @@ def test_auto_engine_unified(monkeypatch):
     from ntrace_tpu.scenes import make_random_soup
     from ntrace_tpu.trace.registry import resolve_kernel
 
-    # Registry no longer hard-maps auto/wavefront to stack2.
+    # The registry leaves auto to the renderer.
     assert resolve_kernel("auto").engine == "auto"
-    assert resolve_kernel("wavefront").engine == "wavefront"
 
     scene = make_random_soup(n_tris=300, seed=3)
-    # Off-TPU: auto -> stack2 (packet only runs interpreted off-TPU).
     r = Renderer(scene, BuildConfig(builder="binned_sah"),
                  RenderConfig(width=8, height=8, engine="auto"))
     assert r.engine == "stack2"
 
-    # TPU-like backend: auto and wavefront both pick the packet engine.
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    for name in ("auto", "wavefront"):
-        r = Renderer(scene, BuildConfig(builder="binned_sah"),
-                     RenderConfig(width=8, height=8, engine=name))
-        assert r.engine == "packet", name
-    # kd accel under auto on TPU: the packet engine over the kd CELL-box
+    # GPU backend: auto picks the kernel (constructing the tracer does
+    # not compile it).
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    r = Renderer(scene, BuildConfig(builder="binned_sah"),
+                 RenderConfig(width=8, height=8, engine="auto"))
+    assert r.engine == "ww"
+    # kd accel under auto on a GPU: the kernel over the kd CELL-box
     # FlatBVH view (kd_to_flatbvh), never the raw-kd-layout misread.
     from ntrace_tpu.bvh.flatten import FlatBVH
 
     r = Renderer(scene, BuildConfig(builder="kdtree"),
                  RenderConfig(width=8, height=8, engine="auto"))
-    assert r.engine == "packet" and isinstance(r.flat, FlatBVH)
+    assert r.engine == "ww" and isinstance(r.flat, FlatBVH)
     assert hasattr(r, "flat_kd")
     # Explicit engine="kdtree" keeps the interval-stack reference engine.
     r = Renderer(scene, BuildConfig(builder="kdtree"),

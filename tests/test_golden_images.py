@@ -82,10 +82,10 @@ def test_seeded_secondary_is_exact(mode):
     """Sparse-subset tmax seeding for bounce rays (subset_seeded_trace)
     must be invisible: subset hits are true per-ray upper bounds, so the
     seeded main pass returns the identical closest hit (incl. lowest-id
-    tie-break). Packet engine = the path that engages under auto."""
+    tie-break). Run on the ww kernel, the engine auto picks on a GPU."""
     scene = get_scene("conference", n_tris=4000)
     base = dict(width=64, height=48, mode=mode, samples=2, seed=7,
-                engine="packet", packet_rows=8, seed_subset=8)
+                engine="ww", interpret=True, seed_subset=8)
     off = render_frame(scene, cfg=RenderConfig(**base, seed_secondary="off"),
                        build_cfg=BuildConfig(builder="binned_sah"))
     on = render_frame(scene, cfg=RenderConfig(**base, seed_secondary="on"),

@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 
 from ntrace_tpu.io.obj import load_obj, load_scene_cached, save_obj
-from ntrace_tpu.io.image import checksum, tonemap, write_png
+from ntrace_tpu.io.image import checksum, read_png, tonemap, write_png
 from ntrace_tpu.scenes import get_scene
 
 
@@ -96,7 +96,7 @@ class TestNativeParser:
         np.testing.assert_array_equal(nat.mat_ids, py.mat_ids)
 
     def test_native_vt_matches_python(self, tmp_path):
-        """Native parser carries per-corner UVs (round-2 VERDICT: textured
+        """Native parser carries per-corner UVs (textured
         OBJs must keep the native fast path)."""
         from ntrace_tpu.native import native_available
 
@@ -154,6 +154,18 @@ class TestImageIO:
 
         back = np.asarray(Image.open(p))
         np.testing.assert_array_equal(back, u8)
+
+    def test_png_roundtrip_without_pil(self, tmp_path):
+        """write_png needs only zlib + struct; read_png reads it back
+        bit-exactly, odd sizes included."""
+        rng = np.random.default_rng(4)
+        img = rng.integers(0, 256, size=(7, 13, 3), dtype=np.uint8)
+        p = tmp_path / "rt.png"
+        write_png(str(p), img)
+        np.testing.assert_array_equal(read_png(str(p)), img)
+        f = rng.uniform(0, 2, size=(5, 6, 3)).astype(np.float32)
+        write_png(str(p), f)
+        np.testing.assert_array_equal(read_png(str(p)), tonemap(f))
 
     def test_checksum_stable(self):
         img = np.ones((8, 8, 3), np.float32) * 0.5

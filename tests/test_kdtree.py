@@ -80,7 +80,7 @@ class TestKDTree:
 
 class TestKDCellBoxView:
     """kd_to_flatbvh: the kd tree re-expressed as a BVH of cell boxes must
-    trace identically (the TPU fast path runs the packet engine over it)."""
+    trace identically (the GPU kernel runs over it under engine auto)."""
 
     def test_cellbox_golden_matches_brute(self, rng):
         from ntrace_tpu.bvh.kdtree import kd_to_flatbvh
@@ -98,17 +98,16 @@ class TestKDCellBoxView:
 
     def test_cellbox_packet_matches_interval_stack(self, rng):
         from ntrace_tpu.bvh.kdtree import kd_to_flatbvh
-        from ntrace_tpu.bvh.packed import pack_bvh
-        from ntrace_tpu.trace.packet_pallas import trace_packet
+        from ntrace_tpu.trace.ww_kernel import trace_ww
 
         scene = make_random_soup(n_tris=600, seed=29)
         kd = build_kdtree(scene, BuildConfig(builder="kdtree"))
         flat = kd_to_flatbvh(kd)
-        pk = pack_bvh(flat, scene.tri_verts())
+        fut, f_nodes = unify_tables(flat)
         o, d, tn, tx = random_rays(rng, 512)
-        got = trace_packet(jnp.asarray(pk.nodes8), jnp.asarray(pk.tris12),
-                           jnp.asarray(o), jnp.asarray(d), jnp.asarray(tn),
-                           jnp.asarray(tx), interpret=True)
+        got = trace_ww(jnp.asarray(fut), f_nodes, jnp.asarray(o),
+                       jnp.asarray(d), jnp.asarray(tn), jnp.asarray(tx),
+                       interpret=True)
         ut, n_nodes = unify_tables(kd)
         ref = trace_kd(jnp.asarray(ut), n_nodes, jnp.asarray(kd.root_lo),
                        jnp.asarray(kd.root_hi), jnp.asarray(o),

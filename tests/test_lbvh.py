@@ -152,8 +152,8 @@ class TestHLBVH:
 
 def test_duplicate_code_clusters_fat_leaves_bounded_depth():
     """Duplicate-Morton-code clusters must become fat leaves, not
-    index-order chains: a >128-deep chain silently overflows the packet
-    kernel's traversal stack (caught on full-conference LBVH, round 2)."""
+    index-order chains: a >128-deep chain silently overflows a 64-entry
+    traversal stack (caught on full-conference LBVH)."""
     rng = np.random.default_rng(0)
     base = make_random_soup(n_tris=1000, seed=9)
     tv = base.tri_verts().copy()
@@ -180,55 +180,3 @@ def test_duplicate_code_clusters_fat_leaves_bounded_depth():
     rec = trace_cpu_golden(flat, o, d, tn, tx)
     ref = brute_force_mt(scene, o, d, tn, tx)
     np.testing.assert_array_equal(rec.tri, ref.tri)
-
-
-@pytest.mark.parametrize("n,ml,tpr,npr", [
-    (500, 4, 12, 1), (3000, 8, 4, 1), (3000, 16, 12, 8),
-])
-def test_lbvh_packed_direct_matches_brute(n, ml, tpr, npr, rng):
-    """emit="packed" device emission (bvh/packed.py tables, no FlatBVH
-    round trip, no sentinel rows) traced by the packet kernel must match
-    brute force exactly."""
-    from ntrace_tpu.bvh.lbvh import build_lbvh_packed
-    from ntrace_tpu.trace.packet_pallas import trace_packet
-
-    soup = make_random_soup(n_tris=n, seed=7)
-    pk = build_lbvh_packed(
-        soup, BuildConfig(builder="lbvh", max_leaf_size=ml),
-        tris_per_row=tpr, nodes_per_row=npr)
-    o, d, tn, tx = random_rays(rng, 700)
-    tri, t, u, v = trace_packet(
-        np.asarray(pk.nodes8), np.asarray(pk.tris12), o, d, tn, tx,
-        rows=8, interpret=True, order="code", tris_per_row=tpr,
-        nodes_per_row=npr)
-    ref = brute_force_mt(soup, o, d, tn, tx)
-    np.testing.assert_array_equal(np.asarray(tri), ref.tri)
-    hit = ref.tri >= 0
-    np.testing.assert_allclose(np.asarray(t)[hit], ref.t[hit],
-                               rtol=1e-5, atol=1e-6)
-
-
-def test_renderer_direct_path_matches_flat(monkeypatch):
-    """The Renderer's packed-direct lbvh path (device tables, no FlatBVH
-    round trip) must produce the same hits as the flat-path render."""
-    import os
-    from ntrace_tpu.core import RenderConfig
-    from ntrace_tpu.render.renderer import Renderer
-
-    scene = get_scene("conference", n_tris=4000)
-    bcfg = BuildConfig(builder="lbvh", max_leaf_size=8)
-    cfg = RenderConfig(width=64, height=48, engine="auto", packet_rows=8)
-    from ntrace_tpu.scenes import default_camera
-    cam = default_camera("conference")
-
-    monkeypatch.setenv("NTRACE_DIRECT", "1")
-    r_direct = Renderer(scene, bcfg, cfg)
-    assert r_direct.engine == "packet" and r_direct._direct
-    res_d = r_direct.render(cam, mode="primary")
-
-    monkeypatch.delenv("NTRACE_DIRECT")
-    r_flat = Renderer(scene, bcfg, cfg)
-    assert not r_flat._direct
-    res_f = r_flat.render(cam, mode="primary")
-    np.testing.assert_array_equal(res_d.hit_tri, res_f.hit_tri)
-    np.testing.assert_array_equal(res_d.image, res_f.image)

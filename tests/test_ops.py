@@ -246,26 +246,3 @@ class TestConvexPolyhedron:
         # AABB tests: visible box intersects, behind-camera box does not.
         assert fr.intersects_aabb([-1, -1, -5], [1, 1, -4])
         assert not fr.intersects_aabb([-1, -1, 4], [1, 1, 5])
-
-
-class TestPallasRowScan:
-    """ops/pscan.py: one-pass carry scan == lax.cummax/cummin bit-exactly."""
-
-    def test_matches_lax_all_directions(self):
-        import jax
-        import jax.numpy as jnp
-
-        from ntrace_tpu.ops.pscan import row_scan_i32
-
-        rng = np.random.default_rng(7)
-        for (r, n) in ((31, 1000), (8, 8192), (3, 257), (31, 20000)):
-            x = jnp.asarray(
-                rng.integers(-2**31, 2**31 - 1, size=(r, n), dtype=np.int32))
-            for op, lax_fn in (("max", jax.lax.cummax),
-                               ("min", jax.lax.cummin)):
-                for rev in (False, True):
-                    got = row_scan_i32(x, op=op, reverse=rev, block=2048)
-                    ref = lax_fn(x, axis=1, reverse=rev)
-                    np.testing.assert_array_equal(
-                        np.asarray(got), np.asarray(ref),
-                        err_msg=f"op={op} rev={rev} shape={(r, n)}")

@@ -1,435 +1,143 @@
-"""Packet Pallas engine vs the brute-force golden (interpret mode on CPU)."""
+"""The ww while-while GPU kernel vs the brute-force golden.
 
+The kernel compiles for CUDA only; here it runs in the Pallas interpreter
+(interpret=True), which executes the same kernel body on the CPU. The
+wrapper's padding, miss encoding and backend check are plain Python and
+are tested directly.
+"""
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from ntrace_tpu.bvh.flatten import flatten_bvh
-from ntrace_tpu.bvh.golden import brute_force_mt, brute_force_anyhit
-from ntrace_tpu.bvh.packed import (
-    NODES_PER_ROW, TRIS_PER_ROW, pack_bvh, unpack_node, unpack_tri_slot,
-)
+from ntrace_tpu.bvh.golden import brute_force_anyhit, brute_force_mt
+from ntrace_tpu.bvh.lbvh import build_lbvh_flat
+from ntrace_tpu.bvh.median import build_median_bvh
 from ntrace_tpu.bvh.sbvh import build_sbvh
 from ntrace_tpu.core import BuildConfig
-from ntrace_tpu.trace.packet_pallas import trace_packet
+from ntrace_tpu.trace.stack2_jax import trace_stack2
+from ntrace_tpu.trace.unified import unify_tables
+from ntrace_tpu.trace.ww_kernel import trace_ww
 
 from conftest import random_rays
 
 
-def _packed(scene):
-    bvh = build_sbvh(scene, BuildConfig(builder="binned_sah"))
-    flat = flatten_bvh(bvh, scene)
-    return flat, pack_bvh(flat, scene.tri_verts())
+def _flat(scene, builder="binned_sah"):
+    if builder == "median":
+        return flatten_bvh(build_median_bvh(scene), scene)
+    if builder == "lbvh":
+        return build_lbvh_flat(scene, BuildConfig(builder=builder))
+    return flatten_bvh(build_sbvh(scene, BuildConfig(builder=builder)), scene)
 
 
-def test_pack_roundtrip(soup_small):
-    from ntrace_tpu.bvh.packed import _decode_leaf_runs
-
-    flat, packed = _packed(soup_small)
-    assert packed.nodes8.shape[0] % 8 == 0
-    assert packed.tris12.shape[0] % 8 == 0
-    assert packed.num_tris == soup_small.num_tris  # no-split builder
-
-    tv = soup_small.tri_verts()
-    starts, counts, children = _decode_leaf_runs(flat)
-    first_slot = np.concatenate([[0], np.cumsum(counts)[:-1]])
-
-    # 1. Every leaf's slot run decodes to exactly the flat layout's tris.
-    seen = np.zeros(soup_small.num_tris, dtype=bool)
-    for l in range(len(starts)):
-        for k in range(int(counts[l])):
-            s = int(first_slot[l]) + k
-            v0, e1, e2, tid = unpack_tri_slot(
-                packed, s // TRIS_PER_ROW, s % TRIS_PER_ROW
-            )
-            assert tid == flat.tri_index[starts[l] + k]
-            seen[tid] = True
-            np.testing.assert_array_equal(v0, tv[tid, 0])
-            np.testing.assert_array_equal(e1, tv[tid, 1] - tv[tid, 0])
-            np.testing.assert_array_equal(e2, tv[tid, 2] - tv[tid, 0])
-    assert seen.all()
-
-    # 2. Node records: child links remap to slot runs with spanned-row
-    #    counts; internal links carry over unchanged.
-    for i in range(packed.num_nodes):
-        bounds, enc, cnt = unpack_node(packed, i)
-        for k in range(2):
-            ref = children[i, k]
-            if ref >= 0:
-                assert enc[k] == ref
-                continue
-            l = int(np.searchsorted(starts, ~ref))
-            fs, c = int(first_slot[l]), int(counts[l])
-            assert enc[k] == -(fs // TRIS_PER_ROW + 1)
-            assert cnt[k] == (fs + c - 1) // TRIS_PER_ROW - fs // TRIS_PER_ROW + 1
-
-    # 3. Tail padding slots are inert (id -1, zero edges).
-    total_slots = packed.tris12.shape[0] * TRIS_PER_ROW
-    for s in range(packed.num_tris, min(total_slots, packed.num_tris + 24)):
-        v0, e1, e2, tid = unpack_tri_slot(
-            packed, s // TRIS_PER_ROW, s % TRIS_PER_ROW
-        )
-        assert tid < 0 and not e1.any() and not e2.any()
+def _ww(flat, orig, dirn, tmin, tmax, any_hit=False):
+    ut, n_nodes = unify_tables(flat)
+    return trace_ww(jnp.asarray(ut), n_nodes, orig, dirn, tmin, tmax,
+                    any_hit, interpret=True)
 
 
-@pytest.mark.parametrize("rows,interleave,order,tpr,npr", [
-    (8, 1, "mins", 12, 8), (16, 1, "code", 12, 8),
-    (8, 4, "mins", 4, 1), (16, 2, "code", 4, 1),
-])
-def test_packet_matches_golden(soup_small, rng, rows, interleave, order,
-                               tpr, npr):
-    flat = flatten_bvh(
-        build_sbvh(soup_small, BuildConfig(builder="binned_sah")), soup_small)
-    packed = pack_bvh(flat, soup_small.tri_verts(),
-                      tris_per_row=tpr, nodes_per_row=npr)
-    orig, dirn, tmin, tmax = random_rays(rng, 700)  # deliberately not a packet multiple
-    tmax = np.minimum(tmax, 1e9).astype(np.float32)
-    tri, t, u, v = trace_packet(
-        packed.nodes8, packed.tris12, orig, dirn, tmin, tmax,
-        any_hit=False, rows=rows, interpret=True, interleave=interleave,
-        order=order, tris_per_row=tpr, nodes_per_row=npr,
-    )
+@pytest.mark.parametrize("builder", ["binned_sah", "median", "sbvh", "lbvh"])
+def test_packet_matches_golden(soup_small, rng, builder):
+    flat = _flat(soup_small, builder)
+    orig, dirn, tmin, tmax = random_rays(rng, 700)  # not a BLOCK multiple
+    tri, t, u, v = _ww(flat, orig, dirn, tmin, tmax)
     ref = brute_force_mt(soup_small, orig, dirn, tmin, tmax)
     np.testing.assert_array_equal(np.asarray(tri), ref.tri)
     hit = ref.tri >= 0
+    # Woop (kernel) vs Moller-Trumbore (brute force): two f32 formulations.
     np.testing.assert_allclose(np.asarray(t)[hit], ref.t[hit], rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(np.asarray(u)[hit], ref.u[hit], rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(np.asarray(v)[hit], ref.v[hit], rtol=1e-4, atol=1e-5)
 
 
-def test_packet_operand_broadcast_bit_exact(soup_small, rng):
-    """leafbc/slabbc (vector-pipe operand broadcasts replacing scalar lane
-    extracts) must be BIT-identical to the scalar-extract kernel: same fp32
-    elementwise ops, operands merely vector-shaped."""
-    flat = flatten_bvh(
-        build_sbvh(soup_small, BuildConfig(builder="binned_sah")), soup_small)
-    packed = pack_bvh(flat, soup_small.tri_verts())
-    orig, dirn, tmin, tmax = random_rays(rng, 700)
-    tmax = np.minimum(tmax, 1e9).astype(np.float32)
-    args = (packed.nodes8, packed.tris12, orig, dirn, tmin, tmax)
-    base = trace_packet(*args, rows=8, interpret=True, order="code")
-    for kw in (dict(leafbc=True), dict(slabbc=True),
-               dict(leafbc=True, slabbc=True)):
-        got = trace_packet(*args, rows=8, interpret=True, order="code", **kw)
-        for i in range(4):
-            np.testing.assert_array_equal(
-                np.asarray(base[i]), np.asarray(got[i]), err_msg=str(kw))
-
-
 def test_packet_anyhit(soup_medium, rng):
-    flat, packed = _packed(soup_medium)
+    flat = _flat(soup_medium)
     orig, dirn, tmin, tmax = random_rays(rng, 1024)
     tmax = np.full_like(tmax, 14.0)  # finite segments: some blocked, some not
-    tri, t, u, v = trace_packet(
-        packed.nodes8, packed.tris12, orig, dirn, tmin, tmax,
-        any_hit=True, interpret=True,
-    )
-    blocked = brute_force_anyhit(soup_medium, orig, dirn, tmin, tmax)
-    np.testing.assert_array_equal(np.asarray(tri) >= 0, blocked)
-
-
-@pytest.mark.parametrize("engine", ["ifif", "ww"])
-@pytest.mark.parametrize("rows,interleave,tpr,npr", [
-    (8, 1, 12, 8), (16, 2, 4, 1), (8, 4, 4, 8),
-])
-def test_packet_variants_match_golden(soup_small, rng, engine, rows,
-                                      interleave, tpr, npr):
-    """The speculative if-if and while-while engines are pixel-identical
-    to the golden (and hence to the cond-structured packet engine)."""
-    from ntrace_tpu.trace.packet_ifif import trace_packet_ifif
-    from ntrace_tpu.trace.packet_ww import trace_packet_ww
-
-    fn = trace_packet_ifif if engine == "ifif" else trace_packet_ww
-    flat = flatten_bvh(
-        build_sbvh(soup_small, BuildConfig(builder="binned_sah")), soup_small)
-    packed = pack_bvh(flat, soup_small.tri_verts(),
-                      tris_per_row=tpr, nodes_per_row=npr)
-    orig, dirn, tmin, tmax = random_rays(rng, 700)
-    tmax = np.minimum(tmax, 1e9).astype(np.float32)
-    tri, t, u, v = fn(
-        packed.nodes8, packed.tris12, orig, dirn, tmin, tmax,
-        rows=rows, interpret=True, interleave=interleave,
-        tris_per_row=tpr, nodes_per_row=npr,
-    )
-    ref = brute_force_mt(soup_small, orig, dirn, tmin, tmax)
-    np.testing.assert_array_equal(np.asarray(tri), ref.tri)
-    hit = ref.tri >= 0
-    np.testing.assert_allclose(np.asarray(t)[hit], ref.t[hit],
-                               rtol=1e-5, atol=1e-6)
-
-
-@pytest.mark.parametrize("engine", ["ifif", "ww"])
-def test_packet_variants_anyhit(soup_medium, rng, engine):
-    from ntrace_tpu.trace.packet_ifif import trace_packet_ifif
-    from ntrace_tpu.trace.packet_ww import trace_packet_ww
-
-    fn = trace_packet_ifif if engine == "ifif" else trace_packet_ww
-    flat = flatten_bvh(
-        build_sbvh(soup_medium, BuildConfig(builder="binned_sah")),
-        soup_medium)
-    packed = pack_bvh(flat, soup_medium.tri_verts(),
-                      tris_per_row=4, nodes_per_row=8)
-    orig, dirn, tmin, tmax = random_rays(rng, 1024)
-    tmax = np.full_like(tmax, 14.0)
-    tri, t, u, v = fn(
-        packed.nodes8, packed.tris12, orig, dirn, tmin, tmax,
-        any_hit=True, interpret=True, interleave=2,
-        tris_per_row=4, nodes_per_row=8,
-    )
+    tri, t, u, v = _ww(flat, orig, dirn, tmin, tmax, any_hit=True)
     blocked = brute_force_anyhit(soup_medium, orig, dirn, tmin, tmax)
     np.testing.assert_array_equal(np.asarray(tri) >= 0, blocked)
 
 
 def test_packet_dead_rays_stay_dead(soup_small, rng):
-    _, packed = _packed(soup_small)
+    flat = _flat(soup_small)
     orig, dirn, tmin, tmax = random_rays(rng, 256)
     tmax[:] = 0.0  # zero-length segments: the renderer's dead-ray encoding
-    tri, t, u, v = trace_packet(
-        packed.nodes8, packed.tris12, orig, dirn, tmin, tmax,
-        any_hit=True, interpret=True,
-    )
+    tri, t, u, v = _ww(flat, orig, dirn, tmin, tmax, any_hit=True)
     assert (np.asarray(tri) == -1).all()
 
 
-def test_forest_path_matches_single_chunk(soup_small, monkeypatch):
-    """Morton-chunked forest (large-scene path) == single-chunk results.
-
-    Shrinking the VMEM budget forces the Renderer onto bvh/forest.py with
-    several chunks even for a small soup; closest-hit and any-hit results
-    must match the single-chunk packet engine exactly.
-    """
-    import jax.numpy as jnp
-
-    from ntrace_tpu.core import RenderConfig
-    from ntrace_tpu.render import renderer as rmod
-    from ntrace_tpu.render.renderer import Renderer
-
-    cfg = BuildConfig(builder="binned_sah", sah_tri_cost=0.1,
-                      max_leaf_size=16)
-    rng = np.random.default_rng(11)
-    o, d, tn, tx = random_rays(rng, 512)
-    args = (jnp.asarray(o), jnp.asarray(d), jnp.asarray(tn), jnp.asarray(tx))
-
-    single = Renderer(soup_small, cfg, RenderConfig(engine="packet"))
-    assert not hasattr(single, "forest")
-    ref = [np.asarray(x) for x in single._tracer(*args, False)]
-    ref_any = [np.asarray(x) for x in single._tracer(*args, True)]
-
-    monkeypatch.setattr(rmod, "VMEM_BUDGET", 1 << 12)  # force chunking
-    fr = Renderer(soup_small, cfg, RenderConfig(engine="packet"))
-    assert len(fr.forest) >= 2
-    got = [np.asarray(x) for x in fr._tracer(*args, False)]
-    got_any = [np.asarray(x) for x in fr._tracer(*args, True)]
-
-    for i, name in enumerate(("tri", "t", "u", "v")):
-        np.testing.assert_array_equal(ref[i], got[i], err_msg=name)
-    # any-hit: agreement on hit/no-hit (the accepted tri may differ).
-    np.testing.assert_array_equal(ref_any[0] >= 0, got_any[0] >= 0)
-
-    # Chunk-membership compaction (R >= 2048 activates it): the sorted
-    # forest pass must be pixel-identical to the uncompacted one -- the
-    # per-ray results are packet-grouping-invariant by design.
-    o2, d2, tn2, tx2 = random_rays(rng, 2048)
-    args2 = tuple(jnp.asarray(x) for x in (o2, d2, tn2, tx2))
-    off = Renderer(soup_small, cfg,
-                   RenderConfig(engine="packet", compact_forest="off"))
-    on = Renderer(soup_small, cfg,
-                  RenderConfig(engine="packet", compact_forest="on"))
-    assert len(on.forest) >= 2
-    r_off = [np.asarray(x) for x in off._tracer(*args2, False)]
-    r_on = [np.asarray(x) for x in on._tracer(*args2, False)]
-    for i, name in enumerate(("tri", "t", "u", "v")):
-        np.testing.assert_array_equal(r_off[i], r_on[i], err_msg=name)
+@pytest.mark.parametrize("n_rays", [1, 63, 64, 65, 200])
+def test_ww_padding_matches_stack2(soup_small, rng, n_rays):
+    """Ray counts off the block size: padding lanes never leak into the
+    result, and every real ray agrees with stack2 bit for bit on ids."""
+    flat = _flat(soup_small)
+    orig, dirn, tmin, tmax = random_rays(rng, n_rays)
+    got = _ww(flat, orig, dirn, tmin, tmax)
+    ut, n_nodes = unify_tables(flat)
+    ref = trace_stack2(jnp.asarray(ut), n_nodes, orig, dirn, tmin, tmax)
+    assert all(np.asarray(g).shape == (n_rays,) for g in got)
+    np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(ref[0]))
+    np.testing.assert_array_equal(np.asarray(got[1]), np.asarray(ref[1]))
 
 
-def test_packet_bfs_matches_golden(soup_small, rng):
-    """BFS node-batch kernel (trace/packet_bfs.py): identical results to
-    brute force for closest-hit and any-hit (visit order invariance)."""
-    from ntrace_tpu.trace.packet_bfs import trace_packet_bfs
-
-    flat = flatten_bvh(
-        build_sbvh(soup_small, BuildConfig(builder="binned_sah")), soup_small)
-    packed = pack_bvh(flat, soup_small.tri_verts(),
-                      tris_per_row=12, nodes_per_row=1)
-    orig, dirn, tmin, tmax = random_rays(rng, 700)
-    tmax = np.minimum(tmax, 1e9).astype(np.float32)
-    tri, t, u, v = trace_packet_bfs(
-        packed.nodes8, packed.tris12, orig, dirn, tmin, tmax,
-        rows=8, interpret=True)
-    ref = brute_force_mt(soup_small, orig, dirn, tmin, tmax)
-    np.testing.assert_array_equal(np.asarray(tri), ref.tri)
-    hit = ref.tri >= 0
-    np.testing.assert_allclose(np.asarray(t)[hit], ref.t[hit],
-                               rtol=1e-5, atol=1e-6)
-    tmax2 = np.full_like(tmax, 14.0)
-    tri2, *_ = trace_packet_bfs(
-        packed.nodes8, packed.tris12, orig, dirn, tmin, tmax2,
-        rows=8, interpret=True, any_hit=True)
-    blocked = brute_force_anyhit(soup_small, orig, dirn, tmin, tmax2)
-    np.testing.assert_array_equal(np.asarray(tri2) >= 0, blocked)
+def test_ww_all_miss_encoding(soup_small, rng):
+    """Rays pointing away from the scene: tri -1, t inf, u = v = 0."""
+    flat = _flat(soup_small)
+    n = 96
+    orig = np.tile(np.array([[0.0, 100.0, 0.0]], np.float32), (n, 1))
+    dirn = np.tile(np.array([[0.0, 1.0, 0.0]], np.float32), (n, 1))
+    tmin = np.zeros(n, np.float32)
+    tmax = np.full(n, 1e9, np.float32)
+    for any_hit in (False, True):
+        tri, t, u, v = _ww(flat, orig, dirn, tmin, tmax, any_hit=any_hit)
+        assert (np.asarray(tri) == -1).all()
+        assert np.isinf(np.asarray(t)).all()
+        assert not np.asarray(u).any() and not np.asarray(v).any()
 
 
-def test_packet_dleaf_matches_golden(soup_small, rng):
-    """Deferred-leaf kernel (trace/packet_dleaf.py): identical results to
-    brute force for closest-hit and any-hit.  Covers junk-row drains
-    (row 0 re-tests), queue refills, stale-hitT superset visits, and the
-    stack-exhausted tail flush."""
-    from ntrace_tpu.trace.packet_dleaf import trace_packet_dleaf
+def test_ww_zero_direction_components(rng):
+    """Axis-aligned rays (two direction components exactly +-0) go through
+    the reference's epsilon-guarded reciprocal and still hit."""
+    from ntrace_tpu.scenes import make_two_quads
 
-    flat, packed = _packed(soup_small)
-    orig, dirn, tmin, tmax = random_rays(rng, 700)
-    tmax = np.minimum(tmax, 1e9).astype(np.float32)
-    tri, t, u, v = trace_packet_dleaf(
-        packed.nodes8, packed.tris12, orig, dirn, tmin, tmax,
-        rows=8, interpret=True)
-    ref = brute_force_mt(soup_small, orig, dirn, tmin, tmax)
-    np.testing.assert_array_equal(np.asarray(tri), ref.tri)
-    hit = ref.tri >= 0
-    np.testing.assert_allclose(np.asarray(t)[hit], ref.t[hit],
-                               rtol=1e-5, atol=1e-6)
-    # Eager drains (drain_min=1) exercise mostly-junk tiles; results are
-    # drain-policy invariant.
-    tri3, t3, _, _ = trace_packet_dleaf(
-        packed.nodes8, packed.tris12, orig, dirn, tmin, tmax,
-        rows=8, interpret=True, drain_min=1)
-    np.testing.assert_array_equal(np.asarray(tri3), ref.tri)
-    tmax2 = np.full_like(tmax, 14.0)
-    tri2, *_ = trace_packet_dleaf(
-        packed.nodes8, packed.tris12, orig, dirn, tmin, tmax2,
-        rows=8, interpret=True, any_hit=True)
-    blocked = brute_force_anyhit(soup_small, orig, dirn, tmin, tmax2)
-    np.testing.assert_array_equal(np.asarray(tri2) >= 0, blocked)
-
-
-def test_packet_bdl_matches_golden(soup_small, rng):
-    """Batched-node + deferred-leaf kernel (trace/packet_bdl.py):
-    identical results to brute force for closest-hit and any-hit.
-    Covers partial final batches (sp < B), junk-row drains, queue
-    refills, stale-hitT superset visits, and the stack-exhausted tail
-    flush; drain-policy invariance via drain_min=1."""
-    from ntrace_tpu.trace.packet_bdl import trace_packet_bdl
-
-    flat = flatten_bvh(
-        build_sbvh(soup_small, BuildConfig(builder="binned_sah")), soup_small)
-    packed = pack_bvh(flat, soup_small.tri_verts(),
-                      tris_per_row=12, nodes_per_row=1)
-    orig, dirn, tmin, tmax = random_rays(rng, 700)
-    tmax = np.minimum(tmax, 1e9).astype(np.float32)
-    tri, t, u, v = trace_packet_bdl(
-        packed.nodes8, packed.tris12, orig, dirn, tmin, tmax,
-        rows=8, interpret=True)
-    ref = brute_force_mt(soup_small, orig, dirn, tmin, tmax)
-    np.testing.assert_array_equal(np.asarray(tri), ref.tri)
-    hit = ref.tri >= 0
-    np.testing.assert_allclose(np.asarray(t)[hit], ref.t[hit],
-                               rtol=1e-5, atol=1e-6)
-    tri3, t3, _, _ = trace_packet_bdl(
-        packed.nodes8, packed.tris12, orig, dirn, tmin, tmax,
-        rows=8, interpret=True, drain_min=1)
-    np.testing.assert_array_equal(np.asarray(tri3), ref.tri)
-    tmax2 = np.full_like(tmax, 14.0)
-    tri2, *_ = trace_packet_bdl(
-        packed.nodes8, packed.tris12, orig, dirn, tmin, tmax2,
-        rows=8, interpret=True, any_hit=True)
-    blocked = brute_force_anyhit(soup_small, orig, dirn, tmin, tmax2)
-    np.testing.assert_array_equal(np.asarray(tri2) >= 0, blocked)
-    # Contiguous-sibling run merge (superset drains must stay exact).
-    # rows 16/32/64 and merge_sibs x {closest, any-hit, drain_min=1}
-    # were verified standalone on bigger soups (session 4); the suite
-    # pins the cheap representative.
-    tri4, *_ = trace_packet_bdl(
-        packed.nodes8, packed.tris12, orig, dirn, tmin, tmax,
-        rows=8, interpret=True, merge_sibs=True)
-    np.testing.assert_array_equal(np.asarray(tri4), ref.tri)
-    # Grouped run queues (qgroup > 1): grouped rows drain the union of
-    # their members' wants -- superset visits, identical results.
-    # rows 8/16 x qgroup {2,4,8} x {closest, any-hit, merge_sibs,
-    # drain_min=1} verified standalone on a 300-tri soup / 2500 rays
-    # (session 5); the suite pins the cheap representative.
-    tri5, *_ = trace_packet_bdl(
-        packed.nodes8, packed.tris12, orig, dirn, tmin, tmax,
-        rows=8, interpret=True, merge_sibs=True, qgroup=4)
-    np.testing.assert_array_equal(np.asarray(tri5), ref.tri)
-
-
-def test_forest_batch_kernel_dispatch(soup_small, monkeypatch):
-    """Forest chunk passes dispatch the batch-family kernel named by the
-    engine (render/renderer.py _chunk_trace): packet_bdl under a shrunken
-    VMEM budget must produce the same closest hits as the single-chunk
-    packet engine."""
-    import jax.numpy as jnp
-
-    from ntrace_tpu.core import RenderConfig
-    from ntrace_tpu.render import renderer as rmod
-    from ntrace_tpu.render.renderer import Renderer
-
-    cfg = BuildConfig(builder="binned_sah", sah_tri_cost=0.1,
-                      max_leaf_size=16)
-    rng = np.random.default_rng(12)
-    o, d, tn, tx = random_rays(rng, 512)
-    args = (jnp.asarray(o), jnp.asarray(d), jnp.asarray(tn), jnp.asarray(tx))
-
-    single = Renderer(soup_small, cfg, RenderConfig(engine="packet"))
-    ref = [np.asarray(x) for x in single._tracer(*args, False)]
-
-    monkeypatch.setattr(rmod, "VMEM_BUDGET", 1 << 12)  # force chunking
-    fr = Renderer(soup_small, cfg, RenderConfig(engine="packet_bdl"))
-    assert fr.engine == "packet_bdl" and len(fr.forest) >= 2
-    assert all(c["npr"] == 1 for c in fr.forest)
-    got = [np.asarray(x) for x in fr._tracer(*args, False)]
-    for i, name in enumerate(("tri", "t", "u", "v")):
-        np.testing.assert_array_equal(ref[i], got[i], err_msg=name)
-
-
-def test_packet_dleaf_leaf_dense_no_drop(rng):
-    """Leaf-dense stress (hairball-class): fat multi-row leaf runs make
-    queue consumption (one tri-row per drain) lag production (entries per
-    leaf visit), so with the old single-drain-per-step schedule the
-    per-row queues overflowed QCAP here and silently dropped leaf work
-    (wrong closest hits). Guards the drain while-loop invariant
-    (per-row queue depth <= drain_min + 2 < QCAP)."""
-    from ntrace_tpu.scenes import make_random_soup
-    from ntrace_tpu.trace.packet_dleaf import trace_packet_dleaf
-
-    # Dense cluster: ~200 fat leaves (~8 tri-rows each at tpr=4), every
-    # ray's segment crossing nearly all of them.
-    scene = make_random_soup(n_tris=6400, seed=7, extent=1.0)
-    bvh = build_sbvh(scene, BuildConfig(builder="binned_sah",
-                                        max_leaf_size=32, sah_tri_cost=0.005))
-    flat = flatten_bvh(bvh, scene)
-    packed = pack_bvh(flat, scene.tri_verts(), tris_per_row=4)
-    n = 1024
-    # Rays from a shell aimed through the cluster: every ray's frustum
-    # crosses most leaves.
-    orig = rng.normal(size=(n, 3)).astype(np.float32)
-    orig *= (4.0 / np.linalg.norm(orig, axis=1, keepdims=True))
-    target = rng.uniform(-0.4, 0.4, size=(n, 3)).astype(np.float32)
-    dirn = target - orig
-    dirn /= np.linalg.norm(dirn, axis=1, keepdims=True)
-    tmin = np.zeros((n,), np.float32)
-    tmax = np.full((n,), 1e9, np.float32)
-    tri, t, _, _ = trace_packet_dleaf(
-        packed.nodes8, packed.tris12, orig, dirn, tmin, tmax,
-        rows=8, interpret=True, tris_per_row=4, drain_min=64)
+    scene = make_two_quads()
+    flat = _flat(scene, "median")
+    lo, hi = scene.bbox()
+    c = (lo + hi) / 2
+    orig, dirn = [], []
+    for axis in range(3):
+        for sign in (1.0, -1.0):
+            o = c.copy()
+            o[axis] = (lo[axis] - 1.0) if sign > 0 else (hi[axis] + 1.0)
+            d = np.zeros(3, np.float32)
+            d[axis] = sign
+            orig.append(o)
+            dirn.append(d)
+    orig = np.asarray(orig, np.float32)
+    dirn = np.asarray(dirn, np.float32)
+    neg = dirn[1::2]
+    neg[neg == 0] = -0.0   # negative zeros on every other ray
+    tmin = np.zeros(len(orig), np.float32)
+    tmax = np.full(len(orig), 1e9, np.float32)
+    tri, t, _, _ = _ww(flat, orig, dirn, tmin, tmax)
     ref = brute_force_mt(scene, orig, dirn, tmin, tmax)
     np.testing.assert_array_equal(np.asarray(tri), ref.tri)
+    assert (ref.tri >= 0).any()
 
 
-def test_packet_bdl_rows64_matches_golden(soup_small, rng):
-    """rows=64 (the largest packet): per-row wants extraction uses 32
-    independent packed reduces; results identical to brute force."""
-    from ntrace_tpu.trace.packet_bdl import trace_packet_bdl
+def test_ww_refuses_cpu_without_interpret(soup_small, rng):
+    """Naming the kernel where it cannot compile is an error, never a
+    silent interpreter fallback -- in the wrapper and in the Renderer."""
+    from ntrace_tpu.core import RenderConfig
+    from ntrace_tpu.render.renderer import Renderer
 
-    flat = flatten_bvh(
-        build_sbvh(soup_small, BuildConfig(builder="binned_sah")), soup_small)
-    packed = pack_bvh(flat, soup_small.tri_verts(),
-                      tris_per_row=12, nodes_per_row=1)
-    orig, dirn, tmin, tmax = random_rays(rng, 700)
-    tmax = np.minimum(tmax, 1e9).astype(np.float32)
-    tri, t, _, _ = trace_packet_bdl(
-        packed.nodes8, packed.tris12, orig, dirn, tmin, tmax,
-        rows=64, interpret=True)
-    ref = brute_force_mt(soup_small, orig, dirn, tmin, tmax)
-    np.testing.assert_array_equal(np.asarray(tri), ref.tri)
-    hit = ref.tri >= 0
-    np.testing.assert_allclose(np.asarray(t)[hit], ref.t[hit],
-                               rtol=1e-5, atol=1e-6)
+    flat = _flat(soup_small)
+    ut, n_nodes = unify_tables(flat)
+    orig, dirn, tmin, tmax = random_rays(rng, 32)
+    with pytest.raises(RuntimeError, match="interpret=True"):
+        trace_ww(jnp.asarray(ut), n_nodes, orig, dirn, tmin, tmax)
+    with pytest.raises(RuntimeError, match="CUDA kernel"):
+        Renderer(soup_small, BuildConfig(builder="binned_sah"),
+                 RenderConfig(width=8, height=8, engine="ww"), flat=flat)

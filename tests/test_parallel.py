@@ -98,8 +98,8 @@ def test_frame_step_single_equals_sharded(soup_small, rng, mesh8):
 
 
 def test_stack2_sharded_matches_single(soup_medium, rng, mesh8):
-    """Second engine under shard_map (round-3: multi-chip breadth)."""
-    from ntrace_tpu.parallel.mesh import trace_sharded_stack2
+    """The stack2 engine under shard_map."""
+    from ntrace_tpu.parallel.mesh import trace_sharded_unified
     from ntrace_tpu.trace.stack2_jax import trace_stack2
     from ntrace_tpu.trace.unified import unify_tables
 
@@ -110,28 +110,29 @@ def test_stack2_sharded_matches_single(soup_medium, rng, mesh8):
     orig, dirn, tmin, tmax = random_rays(rng, 2048)
     args = (jnp.asarray(orig), jnp.asarray(dirn),
             jnp.asarray(tmin), jnp.asarray(tmax))
-    sh = trace_sharded_stack2(mesh8, ut, n_nodes, *args)
+    sh = trace_sharded_unified(mesh8, ut, n_nodes, *args)
     single = trace_stack2(ut, n_nodes, *args)
     for s, g in zip(sh, single):
         np.testing.assert_array_equal(np.asarray(s), np.asarray(g))
 
 
 def test_packet_sharded_matches_single(soup_small, rng, mesh8):
-    """The flagship Pallas packet engine under shard_map (interpret mode on
-    the virtual CPU mesh): sharded == single, bit-for-bit."""
-    from ntrace_tpu.bvh.packed import pack_bvh
-    from ntrace_tpu.parallel.mesh import trace_sharded_packet
-    from ntrace_tpu.trace.packet_pallas import trace_packet
+    """The ww kernel under shard_map (interpret mode on the virtual CPU
+    mesh): sharded == single, bit-for-bit."""
+    from ntrace_tpu.parallel.mesh import trace_sharded_unified
+    from ntrace_tpu.trace.unified import unify_tables
+    from ntrace_tpu.trace.ww_kernel import trace_ww
 
     flat = flatten_bvh(build_sbvh(soup_small, BuildConfig(builder="binned_sah")),
                        soup_small)
-    pk = pack_bvh(flat, soup_small.tri_verts())
-    n8, t12 = jnp.asarray(pk.nodes8), jnp.asarray(pk.tris12)
+    ut, n_nodes = unify_tables(flat)
+    ut = jnp.asarray(ut)
     orig, dirn, tmin, tmax = random_rays(rng, 1024)
     args = (jnp.asarray(orig), jnp.asarray(dirn),
             jnp.asarray(tmin), jnp.asarray(tmax))
-    sh = trace_sharded_packet(mesh8, n8, t12, *args, rows=8, interpret=True)
-    single = trace_packet(n8, t12, *args, rows=8, interpret=True)
+    sh = trace_sharded_unified(mesh8, ut, n_nodes, *args, engine="ww",
+                              interpret=True)
+    single = trace_ww(ut, n_nodes, *args, interpret=True)
     for s, g in zip(sh, single):
         np.testing.assert_array_equal(np.asarray(s), np.asarray(g))
 
@@ -139,7 +140,7 @@ def test_packet_sharded_matches_single(soup_small, rng, mesh8):
 def test_render_step_sharded_stack2_matches_renderer(soup_medium, mesh8):
     """Full sharded frame (primary + shadow + shading + psum) on stack2
     == the Renderer's shadow mode, pixel-exact."""
-    from ntrace_tpu.parallel.mesh import render_step_sharded_stack2
+    from ntrace_tpu.parallel.mesh import render_step_sharded_unified
 
     scene = soup_medium
     W, H = 64, 48
@@ -152,7 +153,7 @@ def test_render_step_sharded_stack2_matches_renderer(soup_medium, mesh8):
     batch = raygen.primary(raygen.camera_arrays(cam, W, H), W, H,
                            jnp.asarray(order))
     light = jnp.asarray(renderer._default_light(cam), jnp.float32)
-    color, hits = render_step_sharded_stack2(
+    color, hits = render_step_sharded_unified(
         mesh8, renderer.ut_dev, renderer.ut_nodes, renderer.geom_normals,
         batch.orig, batch.dirn, batch.tmin, batch.tmax, light,
         eps=float(renderer.eps),
@@ -161,123 +162,3 @@ def test_render_step_sharded_stack2_matches_renderer(soup_medium, mesh8):
     img = np.asarray(fb).reshape(H, W, 3)
     np.testing.assert_array_equal(img, ref.image)
     assert int(hits) == int((ref.hit_tri >= 0).sum())
-
-
-def test_packet_bdl_sharded_matches_single(soup_small, rng, mesh8):
-    """The combined batched-node + deferred-leaf kernel under shard_map:
-    sharded == single, bit-for-bit (multi-chip breadth for the round-3
-    kernel family)."""
-    from ntrace_tpu.bvh.packed import pack_bvh
-    from ntrace_tpu.parallel.mesh import trace_sharded_packet
-    from ntrace_tpu.trace.packet_bdl import trace_packet_bdl
-
-    flat = flatten_bvh(build_sbvh(soup_small, BuildConfig(builder="binned_sah")),
-                       soup_small)
-    pk = pack_bvh(flat, soup_small.tri_verts(), nodes_per_row=1)
-    n8, t12 = jnp.asarray(pk.nodes8), jnp.asarray(pk.tris12)
-    orig, dirn, tmin, tmax = random_rays(rng, 1024)
-    args = (jnp.asarray(orig), jnp.asarray(dirn),
-            jnp.asarray(tmin), jnp.asarray(tmax))
-    sh = trace_sharded_packet(mesh8, n8, t12, *args, rows=8, interpret=True,
-                              kernel="packet_bdl")
-    single = trace_packet_bdl(n8, t12, *args, rows=8, interpret=True)
-    for s, g in zip(sh, single):
-        np.testing.assert_array_equal(np.asarray(s), np.asarray(g))
-
-
-def test_forest_sharded_scene_sharding(soup_small, rng):
-    """Scene sharding x ray DP (trace_sharded_forest): forest chunk
-    tables sharded over a 'chunks' mesh axis, rays over 'rays'.  The
-    cross-chip all_gather fold must reproduce brute force exactly --
-    each chip only ever sees ITS shard of the scene."""
-    from ntrace_tpu.bvh.forest import morton_partition, sub_scene
-    from ntrace_tpu.bvh.golden import brute_force_anyhit, brute_force_mt
-    from ntrace_tpu.bvh.packed import pack_bvh
-    from ntrace_tpu.parallel.mesh import (
-        make_mesh2, stack_forest_tables, trace_sharded_forest,
-    )
-    from tests.test_bvh import assert_hits_match_brute
-
-    mesh = make_mesh2(2, 4)
-    chunks = morton_partition(soup_small, max_refs=soup_small.num_tris // 3)
-    forest = []
-    for ci, ids in enumerate(chunks):
-        sub = sub_scene(soup_small, ids, ci)
-        fl = flatten_bvh(build_sbvh(sub, BuildConfig(builder="binned_sah")),
-                         sub)
-        # default nodes_per_row=8 matches trace_packet's default; a
-        # mismatch between pack layout and kernel kwarg silently
-        # misdecodes node rows.
-        pk = pack_bvh(fl, sub.tri_verts(),
-                      tri_id_map=ids.astype(np.int64))
-        forest.append(dict(nodes=pk.nodes8, tris=pk.tris12))
-    if len(forest) % 2:  # chunk count must divide the chunk axis
-        forest.append(forest[-1])  # duplicate shard: fold is idempotent
-    nodes_st, tris_st = stack_forest_tables(forest)
-
-    orig, dirn, tmin, tmax = random_rays(rng, 512)
-    tmax = np.minimum(tmax, 1e9).astype(np.float32)
-    args = (jnp.asarray(orig), jnp.asarray(dirn),
-            jnp.asarray(tmin), jnp.asarray(tmax))
-    tri, t, u, v = trace_sharded_forest(mesh, nodes_st, tris_st, *args,
-                                        rows=8, interpret=True)
-    ref = brute_force_mt(soup_small, orig, dirn, tmin, tmax)
-
-    class Rec:
-        pass
-
-    rec = Rec()
-    rec.tri, rec.t, rec.u, rec.v = (np.asarray(tri), np.asarray(t),
-                                    np.asarray(u), np.asarray(v))
-    assert_hits_match_brute(rec, ref)
-
-    tmax2 = np.full_like(tmax, 14.0)
-    tri2, *_ = trace_sharded_forest(
-        mesh, nodes_st, tris_st, args[0], args[1], args[2],
-        jnp.asarray(tmax2), rows=8, interpret=True, any_hit=True)
-    blocked = brute_force_anyhit(soup_small, orig, dirn, tmin, tmax2)
-    np.testing.assert_array_equal(np.asarray(tri2) >= 0, blocked)
-
-
-def test_binraster_sharded_matches_single(mesh8):
-    # Screen-bin DP for the bin-raster primary engine: 8 bins over 8
-    # devices must reproduce the single-device frame bit-for-bit.
-    from ntrace_tpu.parallel.mesh import trace_sharded_binraster
-    from ntrace_tpu.ray.pixeltable import pixel_table
-    from ntrace_tpu.ray.raygen import camera_arrays, primary
-    from ntrace_tpu.scenes import make_random_soup
-    from ntrace_tpu.core import Camera
-    from ntrace_tpu.trace import binraster as br
-
-    W = H = 64  # 2x2 bins... need 8 bins -> 128x64 = 4x2
-    W = 128
-    scene = make_random_soup(n_tris=400, seed=23)
-    cam = Camera(position=(0.0, 0.0, 4.0), forward=(0.0, 0.0, -1.0),
-                 up=(0.0, 1.0, 0.0), fov_deg=70.0, znear=1e-3, zfar=1e4)
-    ca = camera_arrays(cam, W, H)
-    order, _ = pixel_table(W, H)
-    rb = primary(ca, W, H, order)
-    verts = jnp.asarray(scene.tri_verts())
-    txn, tyn = W // 32, H // 32
-    nb = txn * tyn
-    total, n_mid, n_g = (int(x) for x in br.count_pairs_fast(
-        verts, ca, width=W, height=H, tile=32, k_slots=4))
-    p_max = br.pick_pmax(total)
-    g_max = br.pick_gmax(n_mid + n_g)
-    mcodes = jnp.asarray(br._bin_mcodes(txn, tyn))
-    rows, r0, r1, g1, ok = br.binraster_prep_fast(
-        verts, ca, mcodes, width=W, height=H, tile=32, k_slots=4,
-        g_max=g_max, p_max=p_max)
-    assert bool(ok)
-    scalars = jnp.concatenate([
-        ca["pos"].astype(jnp.float32),
-        jnp.stack([ca["znear"], ca["zfar"], jnp.float32(0),
-                   jnp.float32(0), jnp.float32(0)])])
-    dirs = jnp.transpose(rb.dirn).reshape(3 * nb * 8, 128)
-    ref = br.trace_binraster_rows(rows, r0, r1, dirs, scalars, g1,
-                                  n_bins=nb, interpret=True)
-    dirs3 = dirs.reshape(3, nb * 8, 128)
-    out = trace_sharded_binraster(mesh8, rows, r0, r1, dirs3, scalars,
-                                  g1, n_bins=nb, interpret=True)
-    for a, b in zip(out, ref):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

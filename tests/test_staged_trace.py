@@ -22,8 +22,8 @@ def rig():
     scene = make_random_soup(n_tris=900, seed=23)
     bcfg = BuildConfig(builder="binned_sah", max_leaf_size=8)
     flat = build_accel(scene, bcfg, use_cache=False)
-    r = Renderer(scene, bcfg, RenderConfig(width=32, height=32,
-                                           packet_rows=8, engine="packet"),
+    r = Renderer(scene, bcfg, RenderConfig(width=32, height=32, engine="ww",
+                                           interpret=True),
                  flat=flat)
     rng = np.random.RandomState(3)
     R = 1024

@@ -1,6 +1,6 @@
 """JAX stack engine vs CPU golden tracer and vs brute force.
 
-The image-exact acceptance gate (SURVEY.md SS8 M2): the TPU engine run on
+The image-exact acceptance gate (SURVEY.md SS8 M2): every JAX engine run on
 the SAME flattened BVH must reproduce the golden tracer's hit ids and
 distances (1-2 ulp tolerance on t for compiler fma differences; ids exact
 except at genuine t ties).
